@@ -1,0 +1,44 @@
+"""ALEA core: fine-grain energy profiling with region (basic-block) sampling.
+
+The port's surface covers what its slices have ported so far: the host
+numpy modules, the single-worker device pipeline and the profiler.
+Exchange, checkpoints, host-mode regions and energy optimisation are not
+ported yet, and nothing here imports them.
+"""
+
+from repro_torch.core.attribution import (AttributionReport,
+                                          ValidationResult, validate)
+from repro_torch.core.estimator import (AggregateFn, EstimateSet,
+                                        EstimateTable, RegionEstimate,
+                                        aggregate_samples_np,
+                                        estimate_combinations,
+                                        estimate_regions,
+                                        estimates_from_statistics,
+                                        z_quantile)
+from repro_torch.core.power_model import (TPU_V5E, HardwareSpec, PowerModel,
+                                          PowerModelParams)
+from repro_torch.core.profiler import EnergyProfiler
+from repro_torch.core.sampler import (HostSampler, RegionMarker,
+                                      SampleBuffer, SampleStream,
+                                      iter_multiworker_chunks,
+                                      iter_sample_chunks, sample_timeline)
+from repro_torch.core.streaming import (CombinationInterner,
+                                        StreamingAggregator,
+                                        StreamingCombinationAggregator,
+                                        stream_estimate)
+from repro_torch.core.timeline import (RegionCost, Timeline, ground_truth,
+                                       synthesize)
+
+__all__ = [
+    "AttributionReport", "ValidationResult", "validate",
+    "AggregateFn", "EstimateSet", "EstimateTable", "RegionEstimate",
+    "aggregate_samples_np", "estimate_combinations", "estimate_regions",
+    "estimates_from_statistics", "z_quantile",
+    "CombinationInterner", "StreamingAggregator",
+    "StreamingCombinationAggregator", "stream_estimate",
+    "TPU_V5E", "HardwareSpec", "PowerModel", "PowerModelParams",
+    "EnergyProfiler",
+    "HostSampler", "RegionMarker", "SampleBuffer", "SampleStream",
+    "iter_multiworker_chunks", "iter_sample_chunks", "sample_timeline",
+    "RegionCost", "Timeline", "ground_truth", "synthesize",
+]
