@@ -5,29 +5,45 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in this checkout
-(``build/kernels/``), then runs four checked phases and fails (non-zero
-exit) if any check fails, and one measuring phase:
+(``build/kernels/``, one ``nvcc`` per source, all started together), then
+runs these phases, and fails (non-zero exit) if any check fails:
 
 1. kernel   — every kernel against its plain PyTorch version at the
-              pipeline's shapes: equal counts, sums to the stated rtol,
-              two kernel runs bitwise equal; kernel, plain, library-call
-              times (CUDA events) and the card's bound for the same work;
+              shapes its path gives it, at the stated tolerances:
+              ``sample_attr`` (equal counts, sums to rtol, bitwise
+              repeatable), ``flash_attention`` (the model's prefill
+              shape, dh 64 and 80, a ragged length, non-causal, float32)
+              and ``rmsnorm`` (block-norm and qk-norm shapes, odd widths,
+              bfloat16 and float32); kernel, plain and library-call times
+              (CUDA events) and the card's bound for the same work;
 2. clock    — the sample clock on the GPU equals the CPU's bit for bit;
 3. parity   — ``EnergyProfiler.profile_timeline_streaming(pipeline=
               "device")`` on the GPU against the port's numpy oracle for
               every trace sensor at D=1 and D=3, ~10^6 samples each;
-4. full     — the main path at full size: one profiling run of a
-              4096-region, 2^20-interval, 3-rail timeline at >= 10^8
-              samples (chunk 65536), with the kernel's launch counter set
-              to 0 just before and read just after;
+4. full     — the profiler's main path at full size: one profiling run of
+              a 4096-region, 2^20-interval, 3-rail timeline at >= 10^8
+              samples (chunk 65536), with the launch counters set to 0
+              just before and read just after;
 5. breakdown — wall time per call of each layer of one chunk and, from a
               torch.profiler trace, kernels per chunk and the device's
-              busy share (measured, not checked).
+              busy share (measured, not checked);
+6. model    — the dense-transformer serving path at full size:
+              ``qwen3-1.7b`` (28 layers, d_model 2048, random weights from
+              a seed) prefills 4 prompts of 2048 tokens through the flash
+              kernel (``attn_impl="flash"``, launch counters set to 0
+              just before and read just after: 28 launches), then takes
+              32 greedy ``decode_step``s; checked against the same
+              prefill through ``attn_impl="full"`` and, for the first
+              decode step, against a prefill of the prompt plus that
+              token; prints prefill ms and tokens/s, decode ms per step,
+              peak device memory, and device time by region (``embed``,
+              ``attn``, ``ffn``, ``lm_head``) from a torch.profiler trace
+              of one prefill.
 
-The line before the last is a JSON object listing every kernel of the
-path; the last line is ``{"ok": true, "device": {...}}``. Without a GPU,
-or without the rest of the repository beside it, it exits non-zero and
-prints no result. It imports nothing of JAX or of the JAX package.
+The line before the last is a JSON object listing every kernel; the last
+line is ``{"ok": true, "device": {...}}``. Without a GPU, or without the
+rest of the repository beside it, it exits non-zero and prints no
+result. It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -41,8 +57,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP64_PER_S = 34e12         # float64 outside the tensor cores, same sheet
+H100_BF16_PER_S = 989e12       # dense bf16 tensor cores, same sheet
 KERNEL_RTOL = 1e-10             # both f64; only the summation order differs
 PIPELINE_RTOL = 1e-9            # the reference's own device-vs-oracle limit
+# The reference's own kernel limits (tests/test_kernels.py).
+FLASH_F32_TOL = dict(atol=2e-5, rtol=1e-4)
+FLASH_BF16_MAX_ABS = 2e-2
+RMSNORM_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+RMSNORM_BF16_MAX_ABS = 2e-2
+# Model phase: bf16 logits of two attention paths through 28 layers, as a
+# share of max |logit| (see model_phase).
+MODEL_REL_TOL = 0.05
 
 
 def log(*args):
@@ -69,6 +94,14 @@ def time_ms(fn, *, warmup=3, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_counters():
+    """Every kernel wrapper of the port; each counts its own launches."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.sample_attr.ops import sample_attr_fold
+    return (sample_attr_fold, flash_attention, rmsnorm)
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +193,143 @@ def kernel_phase(dev):
                 f"library_ms(bincount)={lib_ms:.4f} bound_ms={b_ms:.6f} "
                 f"({b_by})")
     return rows
+
+
+# name, B, H, KV, S, dh, causal, dtype: the model's prefill shape first.
+FLASH_CASES = [
+    ("model", 4, 16, 8, 2048, 128, True, "bfloat16"),
+    ("dh64", 4, 16, 8, 2048, 64, True, "bfloat16"),
+    ("dh80", 4, 16, 8, 2048, 80, True, "bfloat16"),
+    ("ragged", 4, 16, 8, 2000, 128, True, "bfloat16"),
+    ("noncausal", 4, 16, 8, 2048, 128, False, "bfloat16"),
+    ("f32", 1, 16, 8, 2048, 128, True, "float32"),
+]
+# [n, d]: block norms [B·S, d_model] and qk-norm [B·H·S, dh] of the
+# model's prefill, then odd widths.
+RMSNORM_SHAPES = [(8192, 2048), (131072, 128), (513, 768), (1, 33)]
+
+
+def flash_bound_ms(B, H, KV, S, T, dh, causal, esize):
+    """Least time for one attention: q and o (B·H·S·dh), k and v
+    (B·KV·T·dh) each moved once, against HBM bandwidth; and 4·dh
+    operations per (query, key) pair the mask keeps (q·k and p·v, 2 each;
+    causal keeps key col <= row), against the bf16 tensor-core peak.
+    Returns (ms, "bytes"|"operations")."""
+    nbytes = (2 * B * H * S + 2 * B * KV * T) * dh * esize
+    if causal:
+        pairs = sum(min(r + 1, T) for r in range(S))
+    else:
+        pairs = S * T
+    ops = 4 * dh * B * H * pairs
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_BF16_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_phase(dev):
+    """flash_attention against its plain version (ref.py) at the model's
+    prefill shape (qwen3-1.7b: B=4, H=16, KV=8, S=2048, dh=128, bf16,
+    causal) and around it. Returns the model shape's row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    g = torch.Generator(device=dev).manual_seed(12)
+    main = None
+    for name, B, H, KV, S, dh, causal, dt in FLASH_CASES:
+        dt = getattr(torch, dt)
+        q = torch.randn(B, H, S, dh, generator=g, device=dev).to(dt)
+        k = torch.randn(B, KV, S, dh, generator=g, device=dev).to(dt)
+        v = torch.randn(B, KV, S, dh, generator=g, device=dev).to(dt)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        again = ops.flash_attention(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if dt == torch.float32:
+            check(torch.allclose(got, want, **FLASH_F32_TOL),
+                  f"flash_attention {name}: f32 {FLASH_F32_TOL}")
+            tol = f"atol {FLASH_F32_TOL['atol']} rtol {FLASH_F32_TOL['rtol']}"
+        else:
+            check(err <= FLASH_BF16_MAX_ABS,
+                  f"flash_attention {name}: max abs err {err} > "
+                  f"{FLASH_BF16_MAX_ABS}")
+            tol = f"max abs {FLASH_BF16_MAX_ABS}"
+        check(torch.equal(got, again),
+              f"flash_attention {name}: bitwise repeat")
+        k_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                       iters=10)
+        p_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal),
+                       warmup=1, iters=5)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), iters=10)
+        b_ms, b_by = flash_bound_ms(B, H, KV, S, S, dh, causal,
+                                    q.element_size())
+        log(f"kernel flash_attention {name} B={B} H={H} KV={KV} S={S} "
+            f"dh={dh} causal={causal} {str(dt)[6:]}: max_abs_err={err:.3e} "
+            f"({tol}), bitwise repeat ok; ms={k_ms:.4f} plain_ms="
+            f"{p_ms:.4f} library_ms(sdpa)={lib_ms:.4f} bound_ms={b_ms:.6f} "
+            f"({b_by})")
+        if name == "model":
+            main = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                        check=f"{tol} against ref.py, bitwise repeatable")
+        del q, k, v, got, again, want
+    return main
+
+
+def rmsnorm_bound_ms(n, d, esize):
+    """Least time for one RMSNorm: x read and out written once (n·d
+    elements each), scale read once (float32), against HBM bandwidth (the
+    ~4 operations per element are far below the compute peaks)."""
+    return (2 * n * d * esize + 4 * d) / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def rmsnorm_phase(dev):
+    """rmsnorm against its plain version at the shapes of the dense
+    block's norms ([B·S, d_model] = [8192, 2048]) and of qk-norm
+    ([B·H·S, dh] = [131072, 128]) at qwen3-1.7b's prefill, and at odd
+    widths. bf16 scales are drawn from [0.4, 0.6], which keeps |out| < 4:
+    there one bf16 ulp is at most 2^-6, inside the reference's 2e-2 (its
+    own bf16 test normalises unit-scale inputs with scale 1, |out| < ~4).
+    Returns the block-norm bf16 row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    g = torch.Generator(device=dev).manual_seed(13)
+    main = None
+    for n, d in RMSNORM_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(n, d, generator=g, device=dev).to(dt)
+            s = 0.4 + 0.2 * torch.rand(d, generator=g, device=dev)
+            got = ops.rmsnorm(x, s, eps=1e-5)
+            want = rmsnorm_ref(x, s, eps=1e-5)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if dt == torch.float32:
+                check(torch.allclose(got, want, **RMSNORM_F32_TOL),
+                      f"rmsnorm [{n}, {d}] f32 {RMSNORM_F32_TOL}")
+                tol = "atol 1e-5 rtol 1e-5"
+            else:
+                check(err <= RMSNORM_BF16_MAX_ABS,
+                      f"rmsnorm [{n}, {d}] bf16: max abs err {err} > "
+                      f"{RMSNORM_BF16_MAX_ABS}")
+                tol = f"max abs {RMSNORM_BF16_MAX_ABS}"
+            k_ms = time_ms(lambda: ops.rmsnorm(x, s, eps=1e-5))
+            p_ms = time_ms(lambda: rmsnorm_ref(x, s, eps=1e-5))
+            sw = s.to(dt)
+            lib_ms = time_ms(lambda: F.rms_norm(x, (d,), sw, 1e-5))
+            b_ms, b_by = rmsnorm_bound_ms(n, d, x.element_size())
+            log(f"kernel rmsnorm [{n}, {d}] {str(dt)[6:]}: max_abs_err="
+                f"{err:.3e} ({tol}); ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"library_ms(F.rms_norm)={lib_ms:.4f} bound_ms={b_ms:.6f} "
+                f"({b_by})")
+            if (n, d) == RMSNORM_SHAPES[0] and dt == torch.bfloat16:
+                main = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                            check=f"{tol} against ref.py")
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -289,13 +459,17 @@ def full_phase(tl):
                           device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.sample_attr_fold.launches = 0
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
     t0 = time.perf_counter()
     est = prof.profile_timeline_streaming(tl, sensor="instant",
                                           chunk_size=chunk,
                                           pipeline="device")
     secs = time.perf_counter() - t0
     launches = ops.sample_attr_fold.launches
+    others = {c.__name__: c.launches for c in counters
+              if c is not ops.sample_attr_fold}
     peak = torch.cuda.max_memory_allocated()
     n = int(est.n_total)
     # Every sample i lies in [i·T, i·T + T + jitter): all i with
@@ -307,6 +481,7 @@ def full_phase(tl):
     check(n >= 100_000_000, "full: >= 10^8 samples")
     check(launches == n_chunks,
           f"full: sample_attr launches {launches} == chunks {n_chunks}")
+    check(not any(others.values()), f"full: other kernels launched {others}")
     check(bool((est.table.pow_hat > 0).all()) and all(
         bool(torch.isfinite(torch.as_tensor(getattr(est.table, f))).all())
         for f in ("pow_hat", "e_hat", "e_rails")),
@@ -403,6 +578,218 @@ def breakdown_phase(tl):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the dense-transformer serving path at full size.
+# ---------------------------------------------------------------------------
+
+MODEL_ARCH = "qwen3-1.7b"
+MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_DECODE = 4, 2048, 2080, 32
+MODEL_REGIONS = ("embed", "attn", "ffn", "lm_head")
+
+
+def _max_rel(a, b):
+    """max |a - b| / max |b|, in float32."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def model_phase(dev):
+    """``prefill`` + 32 ``decode_step``s of full-width, full-depth
+    qwen3-1.7b (bf16 compute, random float32 master weights from a seeded
+    generator, held as a bf16 copy). The launch counters are set to 0
+    just before the main path (prefill and decode) and read just after.
+
+    Checks: 28 flash launches per prefill (one per layer) and none in
+    decode; finite outputs of the expected shapes; the flash prefill's
+    last-position logits and its cache within ``MODEL_REL_TOL`` of
+    max |.| of the same prefill through ``attn_impl="full"`` (layer 0's
+    K/V, computed before any attention, bitwise equal); the first decode
+    step's logits within the same share of a prefill of the prompt plus
+    that token. The tolerance: the reference's own kernel-vs-plain bf16
+    spread is 1.0% of max |logit| through 2 layers (0.031 at 3.06); the
+    two attention paths round differently (the kernel keeps p and p·v in
+    float32, the plain path rounds the probabilities to bf16), and the
+    difference compounds through 28 layers, so 5% is allowed.
+    Returns the measurements and the path's launch counts."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+    cfg = get_config(MODEL_ARCH)
+    B, S, T, steps = MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_DECODE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    master = M.init_params(g, cfg, device=dev)
+    p = M.cast_params(master, cfg)
+    del master
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(p))
+    log(f"model: {MODEL_ARCH} {cfg.n_layers} layers d_model={cfg.d_model} "
+        f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.head_dim} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}: {n_params} parameters "
+        f"drawn and cast to bf16 in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    batch = {"tokens": tokens}
+
+    M.prefill(p, cfg, batch, T, attn_impl="flash")       # warm-up
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    logits, cache, cur = M.prefill(p, cfg, batch, T, attn_impl="flash")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = fa_ops.flash_attention.launches
+    cur_len = cur.to(torch.int32).expand(B).contiguous()     # [B]
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    first = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step_logits, cache = M.decode_step(p, cfg, tok, cache, cur_len)
+        if i == 0:
+            first = (tok.clone(), step_logits.clone())
+        tok = step_logits[:, -1].argmax(-1, keepdim=True)
+        cur_len = cur_len + 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    check(after_prefill == cfg.n_layers,
+          f"model: flash launches per prefill {after_prefill} == "
+          f"{cfg.n_layers}")
+    check(launches == {"sample_attr_fold": 0, "flash_attention": cfg.n_layers,
+                       "rmsnorm": 0},
+          f"model: launches in prefill + decode {launches}")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "model: prefill logits")
+    check(tuple(step_logits.shape) == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(step_logits).all()),
+          "model: decode logits")
+    check(int(cur_len[0]) == S + steps, "model: cur_len after decode")
+
+    full_logits, full_cache, _ = M.prefill(p, cfg, batch, T,
+                                           attn_impl="full")
+    rel = _max_rel(logits, full_logits)
+    check(rel <= MODEL_REL_TOL,
+          f"model: flash vs full prefill logits {rel:.4f} of max |logit|")
+    l0 = cache["blocks"][0]
+    check(all(torch.equal(l0[k][:, :, :S], full_cache["blocks"][0][k][:, :, :S])
+              for k in ("k", "v")), "model: layer-0 cache bitwise equal")
+    cache_rel = max(_max_rel(c[k][:, :, :S], f[k][:, :, :S])
+                    for c, f in zip(cache["blocks"], full_cache["blocks"])
+                    for k in ("k", "v"))
+    check(cache_rel <= MODEL_REL_TOL,
+          f"model: flash vs full prefill cache {cache_rel:.4f} of max |.|")
+    agree = (logits[:, -1].argmax(-1) == full_logits[:, -1].argmax(-1)
+             ).float().mean().item()
+    del full_cache
+    tok0, logits0 = first
+    ext = {"tokens": torch.cat([tokens, tok0], dim=1)}
+    ext_logits, _, _ = M.prefill(p, cfg, ext, T, attn_impl="flash")
+    dec_rel = _max_rel(logits0, ext_logits)
+    check(dec_rel <= MODEL_REL_TOL,
+          f"model: first decode step vs prefill of S+1 tokens "
+          f"{dec_rel:.4f} of max |logit|")
+    log(f"model: flash vs full prefill: logits {rel:.4f} of max |logit| "
+        f"({full_logits.float().abs().max().item():.3f}), cache "
+        f"{cache_rel:.4f} of max |.|, layer-0 K/V bitwise equal, greedy "
+        f"tokens agree on {agree:.2f} of rows (tolerance {MODEL_REL_TOL}); "
+        f"decode step 1 vs prefill of S+1 tokens {dec_rel:.4f}")
+    log(f"model: prefill B={B} S={S} {prefill_s * 1e3:.2f} ms "
+        f"({B * S / prefill_s:.1f} tokens/s), {after_prefill} flash "
+        f"launches; decode {steps} steps {decode_s * 1e3 / steps:.3f} ms "
+        f"per step ({B * steps / decode_s:.1f} tokens/s); peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB; launches in the main path "
+        f"{launches}")
+    return dict(prefill_ms=prefill_s * 1e3, decode_ms=decode_s * 1e3 / steps,
+                peak_bytes=peak, launches=launches, params=p, cfg=cfg,
+                batch=batch, cache=cache, tok=tok, cur_len=cur_len - 1)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _trace(fn):
+    """Run ``fn`` once under torch.profiler. Returns (device ms by region,
+    kernels launched, device ms busy in kernels, wall ms, the kernels).
+
+    A region's ``record_function`` range appears on the device as an
+    annotation spanning its kernels, from the first one's start to the
+    last one's end (idle gaps inside included); those annotations are
+    the by-region times, and they are kept out of the kernel sums."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.regions import registry
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    names = set(registry.names)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    spans = {e.key: e.self_device_time_total / 1e3 for e in dev
+             if e.key in names}
+    kern = [e for e in dev if e.key not in names]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    return spans, sum(e.count for e in kern), busy_ms, wall_ms, kern
+
+
+def model_breakdown(m):
+    """Where the model path's device time goes, from torch.profiler traces
+    of one flash prefill and one decode step: device ms by region (attn
+    holds ln1, the q/k/v/o projections, qk-norm, rope, the flash kernel
+    and the cache write; ffn holds ln2 and the MLP), kernels launched,
+    and the device's busy share. Measures only; checks nothing; a trace
+    with no device events is reported as not measured."""
+    from repro_torch.models import model as M
+    p, cfg, batch = m["params"], m["cfg"], m["batch"]
+    spans, n_kern, busy, wall, kern = _trace(
+        lambda: M.prefill(p, cfg, batch, MODEL_MAX_LEN, attn_impl="flash"))
+    if busy <= 0:
+        log("model breakdown: device time not measured (the profiler saw "
+            "no device events)")
+        return None
+    flash = sum(e.self_device_time_total for e in kern
+                if "fa_fwd_kernel" in e.key) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    log("model breakdown, one flash prefill: device ms by region "
+        + ", ".join(f"{r} {spans.get(r, 0.0):.3f}" for r in MODEL_REGIONS)
+        + f" (sum {sum(spans.get(r, 0.0) for r in MODEL_REGIONS):.3f}); "
+        f"{n_kern} kernels, device busy {busy:.3f} ms of {wall:.3f} ms "
+        f"profiled wall (busy share {busy / wall:.3f}); flash kernel "
+        f"{flash:.3f} ms; top kernels: "
+        + "; ".join(f"{e.key[:48]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.3f} ms" for e in top))
+    spans_d, n_kern_d, busy_d, wall_d, _ = _trace(
+        lambda: M.decode_step(p, cfg, m["tok"], m["cache"], m["cur_len"]))
+    log(f"model breakdown, one decode step (B={MODEL_BATCH}, cache "
+        f"{MODEL_MAX_LEN}): {n_kern_d} kernels, device busy {busy_d:.3f} "
+        f"ms of {wall_d:.3f} ms profiled wall (busy share "
+        f"{busy_d / wall_d:.3f}); device ms by region "
+        + ", ".join(f"{r} {v:.3f}" for r, v in sorted(spans_d.items())))
+    return dict(prefill_region_ms=spans, prefill_busy_ms=busy,
+                flash_ms=flash, decode_kernels=n_kern_d,
+                decode_busy_ms=busy_d)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -421,13 +808,18 @@ def main():
         f"device {torch.cuda.get_device_name(0)}")
 
     from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
+    names = ["sample_attr", "flash_attention", "rmsnorm"]
     t0 = time.perf_counter()
-    _build.build(["sample_attr"])
-    log(f"build: sample_attr in {time.perf_counter() - t0:.2f} s "
+    _build.build(names)
+    log(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s "
         f"({' '.join(_build.NVCC_FLAGS)})")
 
     dev = torch.device("cuda")
     kernel_rows = kernel_phase(dev)
+    flash_row = flash_phase(dev)
+    rmsnorm_row = rmsnorm_phase(dev)
     clock_phase()
     parity_phase()
     t0 = time.perf_counter()
@@ -437,6 +829,11 @@ def main():
         f"(synthesized in {time.perf_counter() - t0:.1f} s)")
     full = full_phase(tl)
     breakdown_phase(tl)
+    del tl
+    model = model_phase(dev)
+    model_breakdown(model)
+    for k in ("params", "cache"):
+        del model[k]
 
     main_shape = kernel_rows[(4096, 4)]   # the full run's fold: R=4096, C=4
     kernels = [dict(
@@ -444,7 +841,22 @@ def main():
         source="src/repro_torch/kernels/sample_attr/sample_attr.cu",
         replaces="src/repro/kernels/sample_attr/sample_attr.py:80",
         launches=full["launches"], **main_shape,
-        check=f"counts equal, sums rtol {KERNEL_RTOL}, bitwise repeatable")]
+        check=f"counts equal, sums rtol {KERNEL_RTOL}, bitwise repeatable"),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/"
+                    "flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/"
+                      "flash_attention.py:89",
+             launches=model["launches"]["flash_attention"], **flash_row,
+             path=f"{MODEL_ARCH} prefill (one launch per layer); timed at "
+                  f"B=4 H=16 KV=8 S=2048 dh=128 bf16 causal"),
+        dict(name="rmsnorm", route="cuda",
+             source="src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm/rmsnorm.py:35",
+             launches=model["launches"]["rmsnorm"], **rmsnorm_row,
+             path="not on the model path: the models normalise with "
+                  "layers.rmsnorm, as the reference's do; timed at "
+                  "[8192, 2048] bf16")]
     log(f"kernel share of the full run: "
         f"{full['launches'] * main_shape['ms'] / 1e3 / full['seconds']:.4f}"
         f" (launches x kernel ms / run seconds)")

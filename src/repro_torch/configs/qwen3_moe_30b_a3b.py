@@ -1,0 +1,11 @@
+"""qwen3-moe-30b-a3b [moe] — 48L d_model=2048 32H (GQA kv=4) moe_d_ff=768
+vocab=151936, MoE 128 experts top-8. [hf:Qwen/Qwen3-30B-A3B; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-moe-30b-a3b", family="moe",
+    n_layers=48, d_model=2048, n_heads=32, n_kv_heads=4, d_head=128,
+    d_ff=768, moe_d_ff=768, vocab_size=151936,
+    n_experts=128, top_k=8,
+    qk_norm=True, rope_theta=1e6, remat="full",
+)

@@ -1,12 +1,14 @@
 """Carry state across packages: numpy nests → torch tensors on a device.
 
 The JAX package's arrays reach the port as numpy (``np.asarray`` of a
-device array): timeline substrates, pipeline carries and, in later
-slices, model parameters. :func:`tree_to_torch` places such a nest on a
-torch device with its dtypes kept (int32/int64/float64 stay as they
-are). :func:`resolve_device` is the one rule for where the port's entry
-points run: on the GPU unless the caller asks for the CPU, and never
-quietly on the CPU when the GPU was asked for but is missing.
+device array): timeline substrates, pipeline carries, model parameters
+and KV caches. :func:`tree_to_torch` places such a nest on a torch device
+with its dtypes kept (int32/int64/float64 stay as they are).
+:func:`params_from_jax` and :func:`cache_from_jax` turn the reference
+model's layer-stacked pytrees into the port's per-layer lists.
+:func:`resolve_device` is the one rule for where the port's entry points
+run: on the GPU unless the caller asks for the CPU, and never quietly on
+the CPU when the GPU was asked for but is missing.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "tree_to_torch"]
+__all__ = ["cache_from_jax", "params_from_jax", "resolve_device",
+           "tree_to_torch"]
 
 
 def resolve_device(device) -> torch.device:
@@ -42,6 +45,12 @@ def tree_to_torch(tree, device="cuda"):
 
     def conv(x):
         if isinstance(x, np.ndarray | np.generic):
+            if x.dtype.name == "bfloat16":
+                # numpy has no native bfloat16: JAX's arrives as
+                # ml_dtypes.bfloat16, which torch.from_numpy rejects, so
+                # it goes through float32 (exact) and back.
+                return torch.from_numpy(np.asarray(x, np.float32)).to(
+                    dev, dtype=torch.bfloat16)
             return torch.from_numpy(np.array(x)).to(dev)
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
@@ -54,3 +63,44 @@ def tree_to_torch(tree, device="cuda"):
         return x
 
     return conv(tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """A nest of dicts of tensors stacked on a leading layer axis of
+    length ``n`` → a list of ``n`` nests of per-layer tensors."""
+    def check(x):
+        if isinstance(x, dict):
+            return all(check(v) for v in x.values())
+        if x.shape[0] != n:
+            raise ValueError(f"leading layer axis is {x.shape[0]}, "
+                             f"expected {n}")
+        return True
+
+    def pick(x, i):
+        if isinstance(x, dict):
+            return {k: pick(v, i) for k, v in x.items()}
+        return x[i]
+    check(tree)
+    return [pick(tree, i) for i in range(n)]
+
+
+def params_from_jax(tree, cfg, device="cuda") -> dict:
+    """The reference's ``M.init_params`` pytree, as numpy (``np.asarray``
+    of each leaf) → the port's params: the same nest of dicts, with
+    ``blocks`` unstacked from its leading layer axis into a list of
+    per-layer dicts. Dtypes are kept (the reference's master weights are
+    float32). Dense family only, like the port's models."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family "
+                                  f"is not ported yet (ROADMAP A7)")
+    p = tree_to_torch(dict(tree), device)
+    p["blocks"] = _unstack(p["blocks"], cfg.n_layers)
+    return p
+
+
+def cache_from_jax(cache, cfg, device="cuda") -> dict:
+    """The reference's dense KV cache ``{"blocks": {"k", "v"}}``, as numpy,
+    with [L, B, KV, T, dh] leaves (bfloat16 by default) → the port's
+    ``{"blocks": [{"k", "v"} per layer]}``, dtype kept."""
+    return {"blocks": _unstack(tree_to_torch(cache["blocks"], device),
+                               cfg.n_layers)}

@@ -1,9 +1,10 @@
 """ALEA core: fine-grain energy profiling with region (basic-block) sampling.
 
 The port's surface covers what its slices have ported so far: the host
-numpy modules, the single-worker device pipeline and the profiler.
-Exchange, checkpoints, host-mode regions and energy optimisation are not
-ported yet, and nothing here imports them.
+numpy modules, the single-worker device pipeline, the profiler and the
+region markers (``core.regions``). Exchange, checkpoints, host sessions
+and energy optimisation are not ported yet, and nothing here imports
+them.
 """
 
 from repro_torch.core.attribution import (AttributionReport,
