@@ -12,8 +12,10 @@ runs these phases, and fails (non-zero exit) if any check fails:
               shapes its path gives it, at the stated tolerances:
               ``sample_attr`` (equal counts, sums to rtol, bitwise
               repeatable), ``flash_attention`` (the model's prefill
-              shape, dh 64 and 80, a ragged length, non-causal, float32)
-              and ``rmsnorm`` (block-norm and qk-norm shapes, odd widths,
+              shape, dh 64 and 80, a ragged length, non-causal, float32,
+              a transposed q as the model passes it, S=77, float16,
+              bf16 at dh 32; each with its route and TFLOP/s) and
+              ``rmsnorm`` (block-norm and qk-norm shapes, odd widths,
               bfloat16 and float32); kernel, plain and library-call times
               (CUDA events) and the card's bound for the same work;
 2. clock    — the sample clock on the GPU equals the CPU's bit for bit;
@@ -195,32 +197,43 @@ def kernel_phase(dev):
     return rows
 
 
-# name, B, H, KV, S, dh, causal, dtype: the model's prefill shape first.
+# name, B, H, KV, S, dh, causal, dtype, q layout: the model's prefill
+# shape first. "strided" makes q as [B, S, H, dh] and passes it transposed
+# to [B, H, S, dh], as the model does; the others are contiguous.
 FLASH_CASES = [
-    ("model", 4, 16, 8, 2048, 128, True, "bfloat16"),
-    ("dh64", 4, 16, 8, 2048, 64, True, "bfloat16"),
-    ("dh80", 4, 16, 8, 2048, 80, True, "bfloat16"),
-    ("ragged", 4, 16, 8, 2000, 128, True, "bfloat16"),
-    ("noncausal", 4, 16, 8, 2048, 128, False, "bfloat16"),
-    ("f32", 1, 16, 8, 2048, 128, True, "float32"),
+    ("model", 4, 16, 8, 2048, 128, True, "bfloat16", "bhsd"),
+    ("dh64", 4, 16, 8, 2048, 64, True, "bfloat16", "bhsd"),
+    ("dh80", 4, 16, 8, 2048, 80, True, "bfloat16", "bhsd"),
+    ("ragged", 4, 16, 8, 2000, 128, True, "bfloat16", "bhsd"),
+    ("noncausal", 4, 16, 8, 2048, 128, False, "bfloat16", "bhsd"),
+    ("f32", 1, 16, 8, 2048, 128, True, "float32", "bhsd"),
+    ("strided", 4, 16, 8, 2048, 128, True, "bfloat16", "bshd"),
+    ("short", 4, 16, 8, 77, 128, True, "bfloat16", "bhsd"),
+    ("fp16", 4, 16, 8, 2048, 128, True, "float16", "bhsd"),
+    ("dh32", 4, 16, 8, 2048, 32, True, "bfloat16", "bhsd"),
 ]
 # [n, d]: block norms [B·S, d_model] and qk-norm [B·H·S, dh] of the
 # model's prefill, then odd widths.
 RMSNORM_SHAPES = [(8192, 2048), (131072, 128), (513, 768), (1, 33)]
 
 
-def flash_bound_ms(B, H, KV, S, T, dh, causal, esize):
-    """Least time for one attention: q and o (B·H·S·dh), k and v
-    (B·KV·T·dh) each moved once, against HBM bandwidth; and 4·dh
-    operations per (query, key) pair the mask keeps (q·k and p·v, 2 each;
-    causal keeps key col <= row), against the bf16 tensor-core peak.
-    Returns (ms, "bytes"|"operations")."""
-    nbytes = (2 * B * H * S + 2 * B * KV * T) * dh * esize
+def flash_ops(B, H, S, T, dh, causal):
+    """4·dh operations per (query, key) pair the mask keeps (q·k and p·v,
+    2 each; causal keeps key col <= row)."""
     if causal:
         pairs = sum(min(r + 1, T) for r in range(S))
     else:
         pairs = S * T
-    ops = 4 * dh * B * H * pairs
+    return 4 * dh * B * H * pairs
+
+
+def flash_bound_ms(B, H, KV, S, T, dh, causal, esize):
+    """Least time for one attention: q and o (B·H·S·dh), k and v
+    (B·KV·T·dh) each moved once, against HBM bandwidth; and
+    :func:`flash_ops` against the bf16 tensor-core peak.
+    Returns (ms, "bytes"|"operations")."""
+    nbytes = (2 * B * H * S + 2 * B * KV * T) * dh * esize
+    ops = flash_ops(B, H, S, T, dh, causal)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_BF16_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -229,16 +242,22 @@ def flash_bound_ms(B, H, KV, S, T, dh, causal, esize):
 def flash_phase(dev):
     """flash_attention against its plain version (ref.py) at the model's
     prefill shape (qwen3-1.7b: B=4, H=16, KV=8, S=2048, dh=128, bf16,
-    causal) and around it. Returns the model shape's row."""
+    causal) and around it. Prints each case's route (``ops._route``) and
+    achieved TFLOP/s (:func:`flash_ops` / kernel time). Returns the model
+    shape's row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     g = torch.Generator(device=dev).manual_seed(12)
     main = None
-    for name, B, H, KV, S, dh, causal, dt in FLASH_CASES:
+    for name, B, H, KV, S, dh, causal, dt, layout in FLASH_CASES:
         dt = getattr(torch, dt)
-        q = torch.randn(B, H, S, dh, generator=g, device=dev).to(dt)
+        if layout == "bshd":
+            q = torch.randn(B, S, H, dh, generator=g, device=dev).to(
+                dt).transpose(1, 2)
+        else:
+            q = torch.randn(B, H, S, dh, generator=g, device=dev).to(dt)
         k = torch.randn(B, KV, S, dh, generator=g, device=dev).to(dt)
         v = torch.randn(B, KV, S, dh, generator=g, device=dev).to(dt)
         got = ops.flash_attention(q, k, v, causal=causal)
@@ -265,14 +284,17 @@ def flash_phase(dev):
             q, k, v, is_causal=causal, enable_gqa=True), iters=10)
         b_ms, b_by = flash_bound_ms(B, H, KV, S, S, dh, causal,
                                     q.element_size())
+        route = ops._route(dt, dh)
+        tflops = flash_ops(B, H, S, S, dh, causal) / k_ms / 1e9
         log(f"kernel flash_attention {name} B={B} H={H} KV={KV} S={S} "
-            f"dh={dh} causal={causal} {str(dt)[6:]}: max_abs_err={err:.3e} "
-            f"({tol}), bitwise repeat ok; ms={k_ms:.4f} plain_ms="
-            f"{p_ms:.4f} library_ms(sdpa)={lib_ms:.4f} bound_ms={b_ms:.6f} "
-            f"({b_by})")
+            f"dh={dh} causal={causal} {str(dt)[6:]} q {layout}: route "
+            f"{route}; max_abs_err={err:.3e} ({tol}), bitwise repeat ok; "
+            f"ms={k_ms:.4f} ({tflops:.1f} TFLOP/s) plain_ms={p_ms:.4f} "
+            f"library_ms(sdpa)={lib_ms:.4f} bound_ms={b_ms:.6f} ({b_by})")
         if name == "model":
             main = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                        design=route, tflops=tflops,
                         check=f"{tol} against ref.py, bitwise repeatable")
         del q, k, v, got, again, want
     return main
@@ -606,9 +628,10 @@ def model_phase(dev):
     step's logits within the same share of a prefill of the prompt plus
     that token. The tolerance: the reference's own kernel-vs-plain bf16
     spread is 1.0% of max |logit| through 2 layers (0.031 at 3.06); the
-    two attention paths round differently (the kernel keeps p and p·v in
-    float32, the plain path rounds the probabilities to bf16), and the
-    difference compounds through 28 layers, so 5% is allowed.
+    two attention paths round differently (the kernel rounds p to bf16
+    per 128-key tile before its online rescale, the plain path rounds the
+    normalised probabilities), and the difference compounds through 28
+    layers, so 5% is allowed.
     Returns the measurements and the path's launch counts."""
     import torch
     from repro_torch.configs.registry import get_config
@@ -767,7 +790,8 @@ def model_breakdown(m):
             "no device events)")
         return None
     flash = sum(e.self_device_time_total for e in kern
-                if "fa_fwd_kernel" in e.key) / 1e3
+                if "fa_wgmma_kernel" in e.key or "fa_fwd_kernel" in e.key
+                ) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     log("model breakdown, one flash prefill: device ms by region "
         + ", ".join(f"{r} {spans.get(r, 0.0):.3f}" for r in MODEL_REGIONS)

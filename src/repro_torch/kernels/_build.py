@@ -9,8 +9,9 @@ kernels keep PyTorch out of their sources: the Python wrapper passes
 ``data_ptr()`` integers and the current stream.
 
 Libraries land in ``build/kernels/`` at the repository root (git-ignored),
-named by a hash of the source and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Nothing is built at import
+named by a hash of the flags and of every source file in the kernel's
+directory (the ``.cu`` and the ``.cuh`` headers it includes), so an edited
+source or header is rebuilt and an unchanged one is loaded as it is. Nothing is built at import
 time: :func:`load` builds on first use, and :func:`build` starts one
 ``nvcc`` per source, all at once, for callers that want every kernel
 ready up front. A failed build raises.
@@ -50,10 +51,18 @@ def _nvcc() -> str:
                        "from source on the machine with the GPU")
 
 
+def _inputs(name: str) -> list[Path]:
+    """Every file the build of ``name`` reads from the repository: its
+    ``.cu`` and each ``.cu``/``.cuh`` beside it, in a fixed order."""
+    d = _source(name).parent
+    return sorted(p for p in d.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(_source(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _inputs(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, Path]:

@@ -20,24 +20,22 @@
 // 134 MB of q, k, v and o: operations bound it (0.069 ms at 989 TFLOP/s bf16
 // on the tensor cores, against 0.040 ms for the bytes).
 //
-// Design (the simple first version). The TPU kernel carried (m, l, acc) in
-// VMEM across a sequential kv grid axis. Here one CTA owns one (b*h, 64-row
-// query tile) and walks the key axis itself in tiles of 32 keys:
-//   * 4 threads own one query row; each holds a quarter of q and of the
-//     accumulator in registers (float4 chunks interleaved across the four,
-//     so that the four read neighbouring shared-memory words);
-//   * each K/V tile is converted to float32 and staged in shared memory,
-//     rows past T filled with zeros and masked;
-//   * per key, the four partial dot products are combined with two
-//     shuffles; the tile's scores stay in registers for the online-softmax
-//     update (one rescale of (l, acc) per tile);
-//   * causal: tiles wholly above the diagonal (first key > last row of the
-//     query tile) are never loaded; query tiles are issued longest first;
-//   * ragged S and T are masked, not asserted; dh is a template parameter
-//     (32, 64, 80, 128: every config's and every reduced config's width).
-// The arithmetic runs on the CUDA cores in float32, so this version is far
-// from the bound; wgmma on bf16 tiles, TMA loads and warp specialisation are
-// the redesign that closes the gap.
+// Two kernels, chosen by the caller's `route` (ops.py `_route`, from dtype
+// and dh alone; nothing falls back from one to the other):
+//   * route 1, "wgmma" (flash_attention_wgmma.cuh): bf16 and fp16 at dh 64,
+//     80 and 128 on the tensor cores, TMA loads into a ring of K/V tiles, a
+//     producer warpgroup and two consumer warpgroups. P is rounded to the
+//     input type before P.V (the TPU kernel keeps it float32); scores, the
+//     softmax and both accumulators stay float32.
+//   * route 0, "simt" (below): float32 at any dh (TF32 would break the
+//     reference's float32 limit) and dh=32 (reduced configs only), on the
+//     CUDA cores in float32. One CTA owns one (b*h, 64-row query tile) and
+//     walks the keys in tiles of 32 staged in shared memory as float32;
+//     4 threads own one query row (float4 chunks interleaved across the
+//     four), partial dot products combined with two shuffles, one rescale
+//     of (l, acc) per tile; tiles above the diagonal are never loaded and
+//     query tiles are issued longest first.
+// Ragged S and T are masked, not asserted, on both routes.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -172,11 +170,13 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+#include "flash_attention_wgmma.cuh"
+
 template <typename T, int DH>
-static int launch(const void* q, const void* k, const void* v, void* o,
-                  int B, int H, int KV, int64_t S, int64_t Tk,
-                  FaStrides qs, FaStrides ks, FaStrides vs, FaStrides os,
-                  float scale, int causal, cudaStream_t st)
+static int launch_simt(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int KV, int64_t S, int64_t Tk,
+                       FaStrides qs, FaStrides ks, FaStrides vs, FaStrides os,
+                       float scale, int causal, cudaStream_t st)
 {
     const int64_t bh = (int64_t)B * H;
     const int64_t qt = (S + FA_BQ - 1) / FA_BQ;
@@ -188,39 +188,64 @@ static int launch(const void* q, const void* k, const void* v, void* o,
     return (int)cudaGetLastError();
 }
 
+#define FA_ARGS q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, scale, causal, st
+
 template <typename T>
-static int launch_dh(int dh, const void* q, const void* k, const void* v,
-                     void* o, int B, int H, int KV, int64_t S, int64_t Tk,
-                     FaStrides qs, FaStrides ks, FaStrides vs, FaStrides os,
-                     float scale, int causal, cudaStream_t st)
+static int launch_dh(int route, int dh, const void* q, const void* k,
+                     const void* v, void* o, int B, int H, int KV, int64_t S,
+                     int64_t Tk, FaStrides qs, FaStrides ks, FaStrides vs,
+                     FaStrides os, float scale, int causal, cudaStream_t st)
 {
-    switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, scale, causal, st);
-    case 80: return launch<T, 80>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, scale, causal, st);
-    default: return (int)cudaErrorInvalidValue;
+    if constexpr (std::is_same<T, float>::value) {
+        if (route != 0) return (int)cudaErrorInvalidValue;
+        switch (dh) {
+        case 32: return launch_simt<T, 32>(FA_ARGS);
+        case 64: return launch_simt<T, 64>(FA_ARGS);
+        case 80: return launch_simt<T, 80>(FA_ARGS);
+        case 128: return launch_simt<T, 128>(FA_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+        }
+    } else {
+        if (route == 0) {                          // bf16/fp16 take it at dh 32 only
+            if (dh != 32) return (int)cudaErrorInvalidValue;
+            return launch_simt<T, 32>(FA_ARGS);
+        }
+        if (route != 1) return (int)cudaErrorInvalidValue;
+        switch (dh) {
+        case 64: return fa_hopper::launch<T, 64>(FA_ARGS);
+        case 80: return fa_hopper::launch<T, 80>(FA_ARGS);
+        case 128: return fa_hopper::launch<T, 128>(FA_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+        }
     }
 }
 
 extern "C" {
 
 const char* flash_attention_error_string(int err) {
+    if (err == fa_hopper::ERR_NO_ENCODE)
+        return "cuTensorMapEncodeTiled not found through cudaGetDriverEntryPoint";
+    if (err >= fa_hopper::ERR_TENSOR_MAP)
+        return "cuTensorMapEncodeTiled refused a tensor map (a base or stride not "
+               "a multiple of 16 bytes, or a dimension out of range)";
     return cudaGetErrorString((cudaError_t)err);
 }
 
 // o[B, H, S, dh] = attention(q[B, H, S, dh], k/v[B, KV, T, dh]) on `stream`
 // of `device`. Each tensor is given by its pointer and its element strides
 // of (batch, head, row); the head-dim stride is 1. KV divides H; dh is 32,
-// 64, 80 or 128; dtype 0 = float32, 1 = bfloat16, 2 = float16. Returns a
-// cudaError_t (0 on success); nothing is synchronised.
+// 64, 80 or 128; dtype 0 = float32, 1 = bfloat16, 2 = float16; route 0 =
+// the CUDA-core kernel (float32 at any dh, bfloat16/float16 at dh 32), 1 =
+// the tensor-core kernel (bfloat16/float16 at dh 64, 80 or 128; base
+// pointers and strides multiples of 16 bytes); other pairs are refused. Returns a cudaError_t, or an error of the tensor maps
+// (flash_attention_error_string); 0 on success. Nothing is synchronised.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KV, int64_t S, int64_t Tk, int dh,
                         int64_t qsb, int64_t qsh, int64_t qss,
                         int64_t ksb, int64_t ksh, int64_t kss,
                         int64_t vsb, int64_t vsh, int64_t vss,
                         int64_t osb, int64_t osh, int64_t oss,
-                        float scale, int causal, int dtype,
+                        float scale, int causal, int dtype, int route,
                         void* stream, int device)
 {
     if (B <= 0 || H <= 0 || S <= 0) return 0;
@@ -233,9 +258,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     const FaStrides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
         os{osb, osh, oss};
     switch (dtype) {
-    case 0: return launch_dh<float>(dh, q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, scale, causal, st);
-    case 1: return launch_dh<__nv_bfloat16>(dh, q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, scale, causal, st);
-    case 2: return launch_dh<__half>(dh, q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, scale, causal, st);
+    case 0: return launch_dh<float>(route, dh, FA_ARGS);
+    case 1: return launch_dh<__nv_bfloat16>(route, dh, FA_ARGS);
+    case 2: return launch_dh<__half>(route, dh, FA_ARGS);
     default: return (int)cudaErrorInvalidValue;
     }
 }

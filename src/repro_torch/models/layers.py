@@ -4,7 +4,9 @@ embeddings.
 Parameters are plain dicts of tensors, laid out as the reference's pytrees
 (``src/repro/models/layers.py``) so that converting its weights is a tree
 map. Initializers take an explicit ``torch.Generator`` and allocate on the
-generator's device. Compute dtype is the activation's; parameters may be
+generator's device; the norms' initializers take none and allocate on
+``device``, the GPU unless the caller asks for the CPU
+(:func:`repro_torch.convert.resolve_device`). Compute dtype is the activation's; parameters may be
 kept in float32 (master weights) and are cast at use sites.
 """
 
@@ -15,6 +17,8 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.convert import resolve_device
 
 Params = dict[str, Any]
 
@@ -46,8 +50,9 @@ def embed_init(generator: torch.Generator, vocab: int, d: int, *,
 
 # -- norms --------------------------------------------------------------------
 
-def rmsnorm_init(d: int, device="cpu") -> Params:
-    return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+def rmsnorm_init(d: int, device="cuda") -> Params:
+    return {"scale": torch.ones(d, dtype=torch.float32,
+                                device=resolve_device(device))}
 
 
 def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-5
@@ -58,9 +63,10 @@ def rmsnorm(p: Params, x: torch.Tensor, *, eps: float = 1e-5
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
-def layernorm_init(d: int, device="cpu") -> Params:
-    return {"scale": torch.ones(d, dtype=torch.float32, device=device),
-            "bias": torch.zeros(d, dtype=torch.float32, device=device)}
+def layernorm_init(d: int, device="cuda") -> Params:
+    dev = resolve_device(device)
+    return {"scale": torch.ones(d, dtype=torch.float32, device=dev),
+            "bias": torch.zeros(d, dtype=torch.float32, device=dev)}
 
 
 def layernorm(p: Params, x: torch.Tensor, *, eps: float = 1e-5
@@ -79,7 +85,7 @@ def norm(p: Params, x: torch.Tensor, *, kind: str = "rms",
     return layernorm(p, x, eps=eps)
 
 
-def norm_init(d: int, kind: str = "rms", device="cpu") -> Params:
+def norm_init(d: int, kind: str = "rms", device="cuda") -> Params:
     return (rmsnorm_init(d, device) if kind == "rms"
             else layernorm_init(d, device))
 

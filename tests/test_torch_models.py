@@ -167,6 +167,33 @@ def test_norms_match_reference(kind):
     np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
 
 
+@pytest.mark.parametrize("init,args,keys", [
+    ("rmsnorm_init", (48,), ("scale",)),
+    ("layernorm_init", (48,), ("scale", "bias")),
+    ("norm_init", (48, "rms"), ("scale",)),
+    ("norm_init", (48, "layer"), ("scale", "bias"))])
+def test_norm_inits_on_the_cpu_when_asked(init, args, keys):
+    """The reference's norm parameters: scale ones, bias zeros, float32."""
+    got = getattr(PL, init)(*args, device="cpu")
+    want = (RL.rmsnorm_init(48) if "scale" in keys and len(keys) == 1
+            else RL.layernorm_init(48))
+    assert tuple(got) == keys
+    for k in keys:
+        assert got[k].device.type == "cpu" and got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+@pytest.mark.parametrize("init,args", [("rmsnorm_init", (8,)),
+                                       ("layernorm_init", (8,)),
+                                       ("norm_init", (8, "layer"))])
+def test_norm_inits_default_to_the_gpu(init, args, monkeypatch):
+    """Like every entry point of the port, the norm inits run on the GPU
+    unless the caller asks for the CPU, and raise when torch sees none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        getattr(PL, init)(*args)
+
+
 @pytest.mark.parametrize("gated,act", [(True, "silu"), (False, "gelu"),
                                        (True, "gelu")])
 def test_mlp_matches_reference(gated, act):
