@@ -8,27 +8,36 @@ It builds the port's CUDA kernels from the sources in this checkout
 (``build/kernels/``, one ``nvcc`` per source, all started together), then
 runs these phases, and fails (non-zero exit) if any check fails:
 
-1. kernel   — every kernel against its plain PyTorch version at the
+1. clock    — the sample clock on the GPU equals the CPU's bit for bit;
+2. parity   — ``EnergyProfiler.profile_timeline_streaming(pipeline=
+              "device")`` on the GPU against the port's numpy oracle for
+              every trace sensor at D=1 and D=3, ~10^6 samples each;
+3. full     — the profiler's main path at full size: one profiling run of
+              a 4096-region, 2^20-interval, 3-rail timeline at >= 10^8
+              samples (chunk 65536), with the launch counters set to 0
+              just before and read just after; it runs before any
+              torch.profiler session, since a process that has traced
+              the device pays more host time per launch afterwards;
+4. kernel   — every kernel against its plain PyTorch version at the
               shapes its path gives it, at the stated tolerances:
-              ``sample_attr`` (equal counts, sums to rtol, bitwise
-              repeatable), ``flash_attention`` (the model's prefill
+              ``sample_attr`` on uniform ids (equal counts, sums to rtol,
+              bitwise repeatable, bitwise equal to the emulation of its
+              summation order), ``flash_attention`` (the model's prefill
               shape, dh 64 and 80, a ragged length, non-causal, float32,
               a transposed q as the model passes it, S=77, float16,
               bf16 at dh 32; each with its route and TFLOP/s) and
               ``rmsnorm`` (block-norm and qk-norm shapes, odd widths,
-              bfloat16 and float32); kernel, plain and library-call times
-              (CUDA events) and the card's bound for the same work;
-2. clock    — the sample clock on the GPU equals the CPU's bit for bit;
-3. parity   — ``EnergyProfiler.profile_timeline_streaming(pipeline=
-              "device")`` on the GPU against the port's numpy oracle for
-              every trace sensor at D=1 and D=3, ~10^6 samples each;
-4. full     — the profiler's main path at full size: one profiling run of
-              a 4096-region, 2^20-interval, 3-rail timeline at >= 10^8
-              samples (chunk 65536), with the launch counters set to 0
-              just before and read just after;
-5. breakdown — wall time per call of each layer of one chunk and, from a
-              torch.profiler trace, kernels per chunk and the device's
-              busy share (measured, not checked);
+              bfloat16 and float32, each with its launch plan); kernel,
+              plain and library-call times and the card's bound for the
+              same work. ``sample_attr`` and ``rmsnorm`` print device ms
+              (torch.profiler, their own kernels) beside call ms (CUDA
+              events around the wrapper); flash prints call ms;
+5. breakdown — ``sample_attr`` on the full cell's own chunk (k = 700:
+              the ids, channels and mask the main path folds), held
+              and timed as in phase 4: this is the kernel line's
+              ``sample_attr`` row; then wall time per call of each layer
+              of one chunk and, from a torch.profiler trace, kernels per
+              chunk and the device's busy share (measured, not checked);
 6. model    — the dense-transformer serving path at full size:
               ``qwen3-1.7b`` (28 layers, d_model 2048, random weights from
               a seed) prefills 4 prompts of 2048 tokens through the flash
@@ -98,6 +107,38 @@ def time_ms(fn, *, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, *, match=None, warmup=3, iters=20):
+    """Device time of one ``fn()`` from a torch.profiler trace of ``iters``
+    calls (after ``warmup``): the summed ``self_device_time_total`` of the
+    CUDA kernels whose name holds one of ``match`` (every kernel if None),
+    over ``iters``. Returns (ms, {kernel name: ms per call}), or (None, {})
+    when three traces in a row hold no such device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):            # a trace now and then comes back empty
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kern = {e.key: e.self_device_time_total / 1e3 / iters
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and (match is None or any(m in e.key for m in match))}
+        total = sum(kern.values())
+        if total > 0:
+            return total, kern
+    return None, {}
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def launch_counters():
     """Every kernel wrapper of the port; each counts its own launches."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -130,12 +171,13 @@ def fresh_carry(R, C, dev):
             torch.zeros(stat, dtype=torch.float64, device=dev))
 
 
-def sample_attr_bound_ms(c, R, C):
+def sample_attr_bound_ms(c, touched, C):
     """Least time for one fold: each input read once (4 B id, 8·C B power,
-    1 B mask per sample; the carry), each output written once (the
-    carry), against HBM bandwidth; and 1 + 3·C float64 operations per
-    sample against the FP64 peak. Returns (ms, "bytes"|"operations")."""
-    carry = R * (1 + 2 * C) * 8
+    1 B mask per sample), the carry of the ``touched`` regions (those this
+    chunk's valid lanes name) read and written once, against HBM
+    bandwidth; and 1 + 3·C float64 operations per sample against the FP64
+    peak. Returns (ms, "bytes"|"operations")."""
+    carry = touched * (1 + 2 * C) * 8
     nbytes = c * (4 + 8 * C + 1) + 2 * carry
     ops = c * (1 + 3 * C)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FP64_PER_S
@@ -143,58 +185,107 @@ def sample_attr_bound_ms(c, R, C):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(dev):
+SAMPLE_ATTR_DESIGN = ("per 256-sample tile: runs compressed by a segmented "
+                      "reduction, ranked stably by id and merged into a "
+                      "table where out of order; per 32 regions: each "
+                      "region's records in tile order, summed by lane "
+                      "groups reading one record each, then a butterfly")
+SAMPLE_ATTR_KERNELS = ("sa_tile_table", "sa_region_merge")
+
+
+def fold_row(name, R, C, ids, pows, valid):
+    """``sample_attr_fold`` on one chunk against its plain version
+    (``sample_attr_fold_ref``: counts equal, sums to ``KERNEL_RTOL``), to
+    itself (two runs bitwise equal) and to the emulation of its summation
+    order (``sample_attr_fold_emulated``: bitwise equal); then its device
+    ms (profiler, its own kernels) and call ms (CUDA events around the
+    wrapper), the plain version's, ``bincount``'s and the bound."""
     import torch
     from repro_torch.kernels.sample_attr import ops
-    from repro_torch.kernels.sample_attr.ref import sample_attr_fold_ref
-    rows = {}
+    from repro_torch.kernels.sample_attr.ref import (
+        sample_attr_fold_emulated, sample_attr_fold_ref)
+    dev = ids.device
+    c = ids.shape[0]
+    name = f"{name} c={c} R={R} C={C}"
+    got = fresh_carry(R, C, dev)
+    ops.sample_attr_fold(*got, ids, pows, valid)
+    again = fresh_carry(R, C, dev)
+    ops.sample_attr_fold(*again, ids, pows, valid)
+    want = fresh_carry(R, C, dev)
+    sample_attr_fold_ref(*want, ids, pows, valid)
+    emu = fresh_carry(R, C, dev)
+    sample_attr_fold_emulated(*emu, ids, pows, valid)
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got[1:], want[1:]))
+    emu_err = max((g - e).abs().max().item() for g, e in zip(got[1:], emu[1:]))
+    log(f"kernel sample_attr {name}: max_abs_err {err:.3e} against ref.py, "
+        f"{emu_err:.3e} against the emulation of its order")
+    check(torch.equal(got[0], want[0]), f"sample_attr {name}: counts")
+    for g, w in zip(got[1:], want[1:]):
+        check(torch.allclose(g, w, rtol=KERNEL_RTOL, atol=0.0),
+              f"sample_attr {name}: sums rtol={KERNEL_RTOL}")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"sample_attr {name}: bitwise repeat")
+    check(all(torch.equal(a, b) for a, b in zip(got, emu)),
+          f"sample_attr {name}: bitwise equal to sample_attr_fold_emulated")
+
+    carry = fresh_carry(R, C, dev)
+
+    def fold():
+        ops.sample_attr_fold(*carry, ids, pows, valid)
+
+    def plain():
+        sample_attr_fold_ref(*carry, ids, pows, valid)
+
+    # Library yardstick: one bincount over (region, statistic) keys
+    # computes all 1 + 2C statistics (inputs prepared outside the timed
+    # call; never used by the port).
+    ok = (ids >= 0) & (ids < R)
+    if valid is not None:
+        ok = ok & valid
+    pw = pows.reshape(C, c)[:, ok]
+    stats = torch.cat([torch.ones_like(pw[:1]), pw, pw * pw])
+    keys = (ids[ok].to(torch.int64)[None, :] * (1 + 2 * C)
+            + torch.arange(1 + 2 * C, device=dev)[:, None])
+    keys, stats = keys.reshape(-1), stats.reshape(-1)
+
+    def library():
+        torch.bincount(keys, weights=stats, minlength=R * (1 + 2 * C))
+
+    k_call, p_call, l_call = (time_ms(f) for f in (fold, plain, library))
+    k_dev, k_split = device_ms(fold, match=SAMPLE_ATTR_KERNELS)
+    p_dev, _ = device_ms(plain)
+    l_dev, _ = device_ms(library)
+    touched = int(torch.unique(ids[ok]).numel())
+    b_ms, b_by = sample_attr_bound_ms(c, touched, C)
+    split = ", ".join(f"{k.split('<')[0].split()[-1]} {v:.4f}"
+                      for k, v in sorted(k_split.items()))
+    log(f"kernel sample_attr {name} ({touched} regions "
+        f"touched): counts equal, sums rtol {KERNEL_RTOL}, bitwise repeat, "
+        f"bitwise equal to the emulation; device_ms={_fmt(k_dev)} ({split}) "
+        f"call_ms={k_call:.4f}; plain device_ms={_fmt(p_dev)} call_ms="
+        f"{p_call:.4f}; library(bincount) device_ms={_fmt(l_dev)} call_ms="
+        f"{l_call:.4f}; bound_ms={b_ms:.6f} ({b_by})")
+    return dict(max_abs_err=err,
+                ms=k_call if k_dev is None else k_dev,
+                timing="call ms (events): the profiler saw no device time"
+                if k_dev is None else "device ms (torch.profiler)",
+                call_ms=k_call,
+                plain_ms=p_call if p_dev is None else p_dev,
+                library_ms=l_call if l_dev is None else l_dev,
+                plain_call_ms=p_call, library_call_ms=l_call,
+                bound_ms=b_ms, bound_by=b_by, design=SAMPLE_ATTR_DESIGN,
+                split_ms=k_split)
+
+
+def kernel_phase(dev):
+    """``sample_attr`` on uniform ids (the worst case for pass 1's rank
+    sort) at c = 65536, R in {16, 4096}, C in {1, 4}."""
     c = 65536
     for R in (16, 4096):
         for C in (1, 4):
             ids, pows, valid = sample_attr_inputs(c, R, C, R * 10 + C, dev)
-            got = fresh_carry(R, C, dev)
-            ops.sample_attr_fold(*got, ids, pows, valid)
-            again = fresh_carry(R, C, dev)
-            ops.sample_attr_fold(*again, ids, pows, valid)
-            want = fresh_carry(R, C, dev)
-            sample_attr_fold_ref(*want, ids, pows, valid)
-            torch.cuda.synchronize()
-            check(torch.equal(got[0], want[0]),
-                  f"sample_attr counts R={R} C={C}")
-            err = 0.0
-            for g, w in zip(got[1:], want[1:]):
-                check(torch.allclose(g, w, rtol=KERNEL_RTOL, atol=0.0),
-                      f"sample_attr sums R={R} C={C} rtol={KERNEL_RTOL}")
-                err = max(err, (g - w).abs().max().item())
-            check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"sample_attr bitwise repeat R={R} C={C}")
-
-            carry = fresh_carry(R, C, dev)
-            k_ms = time_ms(lambda: ops.sample_attr_fold(*carry, ids, pows,
-                                                        valid))
-            p_ms = time_ms(lambda: sample_attr_fold_ref(*carry, ids, pows,
-                                                        valid))
-            # Library yardstick: one bincount over (region, statistic)
-            # keys computes all 1 + 2C statistics (inputs prepared
-            # outside the timed call; never used by the port).
-            ok = valid & (ids >= 0) & (ids < R)
-            pw = pows.reshape(C, c)[:, ok]
-            stats = torch.cat([torch.ones_like(pw[:1]), pw, pw * pw])
-            keys = (ids[ok].to(torch.int64)[None, :] * (1 + 2 * C)
-                    + torch.arange(1 + 2 * C, device=dev)[:, None])
-            keys, stats = keys.reshape(-1), stats.reshape(-1)
-            lib_ms = time_ms(lambda: torch.bincount(
-                keys, weights=stats, minlength=R * (1 + 2 * C)))
-            b_ms, b_by = sample_attr_bound_ms(c, R, C)
-            rows[(R, C)] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                library_ms=lib_ms, bound_ms=b_ms,
-                                bound_by=b_by)
-            log(f"kernel sample_attr c={c} R={R} C={C}: counts equal, sums "
-                f"max_abs_err={err:.3e} (rtol {KERNEL_RTOL}), bitwise "
-                f"repeat ok; ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"library_ms(bincount)={lib_ms:.4f} bound_ms={b_ms:.6f} "
-                f"({b_by})")
-    return rows
+            fold_row("uniform", R, C, ids, pows, valid)
 
 
 # name, B, H, KV, S, dh, causal, dtype, q layout: the model's prefill
@@ -338,19 +429,38 @@ def rmsnorm_phase(dev):
                       f"rmsnorm [{n}, {d}] bf16: max abs err {err} > "
                       f"{RMSNORM_BF16_MAX_ABS}")
                 tol = f"max abs {RMSNORM_BF16_MAX_ABS}"
-            k_ms = time_ms(lambda: ops.rmsnorm(x, s, eps=1e-5))
-            p_ms = time_ms(lambda: rmsnorm_ref(x, s, eps=1e-5))
             sw = s.to(dt)
-            lib_ms = time_ms(lambda: F.rms_norm(x, (d,), sw, 1e-5))
+            calls = {"kernel": lambda: ops.rmsnorm(x, s, eps=1e-5),
+                     "plain": lambda: rmsnorm_ref(x, s, eps=1e-5),
+                     "library": lambda: F.rms_norm(x, (d,), sw, 1e-5)}
+            k_call, p_call, l_call = (time_ms(f) for f in calls.values())
+            k_dev, _ = device_ms(calls["kernel"], match=("rmsnorm_kernel",))
+            p_dev, _ = device_ms(calls["plain"])
+            l_dev, _ = device_ms(calls["library"])
             b_ms, b_by = rmsnorm_bound_ms(n, d, x.element_size())
-            log(f"kernel rmsnorm [{n}, {d}] {str(dt)[6:]}: max_abs_err="
-                f"{err:.3e} ({tol}); ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"library_ms(F.rms_norm)={lib_ms:.4f} bound_ms={b_ms:.6f} "
+            aligned = (x.data_ptr() | s.data_ptr()) % 16 == 0
+            plan = dict(zip(("vec", "lanes_per_row", "rows_per_warp",
+                             "per_lane"), ops._plan(d, dt, aligned)))
+            log(f"kernel rmsnorm [{n}, {d}] {str(dt)[6:]}: plan {plan}; "
+                f"max_abs_err={err:.3e} ({tol}); device_ms={_fmt(k_dev)} "
+                f"call_ms={k_call:.4f}; plain device_ms={_fmt(p_dev)} "
+                f"call_ms={p_call:.4f}; library(F.rms_norm) device_ms="
+                f"{_fmt(l_dev)} call_ms={l_call:.4f}; bound_ms={b_ms:.6f} "
                 f"({b_by})")
             if (n, d) == RMSNORM_SHAPES[0] and dt == torch.bfloat16:
-                main = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                            check=f"{tol} against ref.py")
+                main = dict(
+                    max_abs_err=err, ms=k_call if k_dev is None else k_dev,
+                    timing="call ms (events): the profiler saw no device "
+                           "time" if k_dev is None
+                    else "device ms (torch.profiler)",
+                    call_ms=k_call,
+                    plain_ms=p_call if p_dev is None else p_dev,
+                    library_ms=l_call if l_dev is None else l_dev,
+                    plain_call_ms=p_call, library_call_ms=l_call,
+                    bound_ms=b_ms, bound_by=b_by,
+                    design=f"row in registers, scale once per warp, "
+                           f"persistent grid; plan {plan}",
+                    check=f"{tol} against ref.py")
     return main
 
 
@@ -516,35 +626,61 @@ def full_phase(tl):
                 peak_bytes=peak)
 
 
+class FullChunk:
+    """Chunk ``k`` of the full cell's profiling run on ``dev``, as the main
+    path folds it: ``ids`` [c] int32, ``pows`` [C, c] float64, ``valid``
+    [c] bool, with the run's clock and sensor state beside them."""
+
+    def __init__(self, tl, dev, k=700, c=65536):
+        import torch
+        from repro_torch.core import device_pipeline as dp, sensors, threefry
+        self.dtl = tl.to_device(device=dev)
+        self.spec = sensors.InstantTraceSensor.make_spec(
+            domains=tl.domain_names)
+        self.k, self.c = k, c
+        self.period = tl.t_exec / 102_000_000
+        self.jitter = 0.2 * self.period
+        self.root = threefry.PRNGKey(0)
+        self.u0 = dp._phase(self.root, self.period)
+        self.prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
+        self.ids, self.pows, self.valid, _ = dp._chunk_samples(
+            self.dtl, self.spec, self.root, self.u0, k, c, self.period,
+            self.jitter, self.prev)
+        self.R, self.C = self.dtl.num_regions, self.pows.shape[0]
+        ids = self.ids[self.valid].cpu().numpy()
+        runs = 1 + int((ids[1:] != ids[:-1]).sum()) if ids.size else 0
+        log(f"full chunk k={k}: {int(self.valid.sum())} of {c} lanes valid, "
+            f"{len(set(ids.tolist()))} regions in {runs} runs (mean run "
+            f"{ids.size / max(runs, 1):.0f} samples)")
+
+
 def breakdown_phase(tl):
-    """Where one chunk's time goes at the full cell's shapes: host wall
-    time per call of each layer (clock, lookup, sensor, fold; the loop is
+    """The fold on the full cell's own chunk (k = 700: the ids, channels
+    and mask the main path launches it with), held and timed by
+    :func:`fold_row`; then where one chunk's time goes: host wall time per
+    call of each layer (clock, lookup, sensor, fold; the loop is
     launch-bound, so wall time is what a layer costs the run), and, from
     a torch.profiler trace of whole chunks, kernels per chunk and the
-    device's busy share. Measures only; checks nothing."""
+    device's busy share (measured, not checked). Returns the fold's row."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import device_pipeline as dp, sensors, threefry
+    from repro_torch.core import device_pipeline as dp
     from repro_torch.kernels.sample_attr import ops
     dev = torch.device("cuda")
-    dtl = tl.to_device(device=dev)
-    spec = sensors.InstantTraceSensor.make_spec(domains=tl.domain_names)
-    c, period = 65536, tl.t_exec / 102_000_000
-    jitter = 0.2 * period
-    root = threefry.PRNGKey(0)
-    u0 = dp._phase(root, period)
+    ch = FullChunk(tl, dev)
+    dtl, spec, root, u0, k, c = ch.dtl, ch.spec, ch.root, ch.u0, ch.k, ch.c
+    period, jitter, prev = ch.period, ch.jitter, ch.prev
     arrs = tuple(a[0] for a in dtl.arrays())
     ends, bounds, eint, powers, rids, m_true, grid, cell = arrs
-    k = 700
     t_raw = dp._raw_chunk_times(root, u0, k, c, period, jitter, dev)
     valid = t_raw < dtl.t_end
     t = torch.clamp_max(t_raw, dtl.t_end)
     cnt = dp._count_le(ends, grid, cell, t, dtl.grid_k)
-    prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
-    rid, chan, _, _ = dp._chunk_samples(dtl, spec, root, u0, k, c, period,
-                                        jitter, prev)
-    carry = fresh_carry(dtl.num_regions, chan.shape[0], dev)
+    rid, chan = ch.ids, ch.pows
+    R, C = ch.R, ch.C
+    row = fold_row(f"full chunk k={k}", R, C, rid, chan, ch.valid)
+    carry = fresh_carry(R, C, dev)
 
     def wall_ms(fn, iters=50):
         fn()
@@ -588,7 +724,7 @@ def breakdown_phase(tl):
     if busy_us <= 0:
         log("breakdown: device time not measured (the profiler saw no "
             "device events)")
-        return
+        return row
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     log(f"breakdown (profiled, {chunks} chunks): {launched / chunks:.0f} "
         f"kernels per chunk, device busy {busy_us / 1e3 / chunks:.3f} ms "
@@ -597,6 +733,7 @@ def breakdown_phase(tl):
         + "; ".join(f"{e.key[:48]} x{e.count // chunks} "
                     f"{e.self_device_time_total / 1e3 / chunks:.4f} ms"
                     for e in top))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -841,9 +978,9 @@ def main():
         f"({' '.join(_build.NVCC_FLAGS)})")
 
     dev = torch.device("cuda")
-    kernel_rows = kernel_phase(dev)
-    flash_row = flash_phase(dev)
-    rmsnorm_row = rmsnorm_phase(dev)
+    # The main path runs before any torch.profiler session: a process that
+    # has traced the device pays more host time per launch afterwards, and
+    # the chunk loop is launch-bound (PERF.md).
     clock_phase()
     parity_phase()
     t0 = time.perf_counter()
@@ -852,20 +989,25 @@ def main():
         f"intervals, {tl.num_domains} rails, t_exec={tl.t_exec:.3f} s "
         f"(synthesized in {time.perf_counter() - t0:.1f} s)")
     full = full_phase(tl)
-    breakdown_phase(tl)
+    kernel_phase(dev)
+    flash_row = flash_phase(dev)
+    rmsnorm_row = rmsnorm_phase(dev)
+    fold = breakdown_phase(tl)
     del tl
     model = model_phase(dev)
     model_breakdown(model)
     for k in ("params", "cache"):
         del model[k]
 
-    main_shape = kernel_rows[(4096, 4)]   # the full run's fold: R=4096, C=4
+    split = fold.pop("split_ms")
     kernels = [dict(
         name="sample_attr", route="cuda",
         source="src/repro_torch/kernels/sample_attr/sample_attr.cu",
         replaces="src/repro/kernels/sample_attr/sample_attr.py:80",
-        launches=full["launches"], **main_shape,
-        check=f"counts equal, sums rtol {KERNEL_RTOL}, bitwise repeatable"),
+        launches=full["launches"], **fold,
+        path="the full run's chunk k=700 (c=65536, R=4096, C=4)",
+        check=f"counts equal, sums rtol {KERNEL_RTOL}, bitwise repeatable, "
+              f"bitwise equal to sample_attr_fold_emulated"),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/"
                     "flash_attention.cu",
@@ -882,8 +1024,11 @@ def main():
                   "layers.rmsnorm, as the reference's do; timed at "
                   "[8192, 2048] bf16")]
     log(f"kernel share of the full run: "
-        f"{full['launches'] * main_shape['ms'] / 1e3 / full['seconds']:.4f}"
-        f" (launches x kernel ms / run seconds)")
+        f"{full['launches'] * fold['ms'] / 1e3 / full['seconds']:.4f} "
+        f"(launches x {fold['timing']} of the fold on the full run's chunk "
+        f"/ run seconds; per kernel: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items()))
+        + ")")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,29 +30,93 @@ __all__ = ["as_aggregate_fn", "make_carry_update", "sample_attr",
            "sample_attr_fold"]
 
 
+# sample_attr_fold's C signature (sample_attr.cu): ids, pows, valid; c, C,
+# R; counts, psum, psumsq; the scratch tbl_id, tbl_cnt, tbl_val, tbl_head;
+# stream, device.
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_ARGTYPES = ((_P,) * 3 + (_I64, _I32, _I64) + (_P,) * 3 + (_P,) * 4
+             + (_P, _I32))
+_INT32_MAX = 2 ** 31 - 1
+
+
+class _Lib:
+    """The built library, its fold function with the C signature declared,
+    and the constants the wrapper needs, each read once at load."""
+
+    def __init__(self, lib):
+        lib.sample_attr_fold.argtypes = list(_ARGTYPES)
+        lib.sample_attr_fold.restype = ctypes.c_int
+        lib.sample_attr_tile.restype = ctypes.c_int
+        lib.sample_attr_max_channels.restype = ctypes.c_int
+        lib.sample_attr_error_string.argtypes = [ctypes.c_int]
+        lib.sample_attr_error_string.restype = ctypes.c_char_p
+        self.fold = lib.sample_attr_fold
+        self.error_string = lib.sample_attr_error_string
+        self.tile = lib.sample_attr_tile()
+        self.max_channels = lib.sample_attr_max_channels()
+
+
 @functools.cache
-def _kernel():
-    """The built kernel library with its C signatures declared (built
-    and loaded on first use, never at import)."""
+def _kernel() -> _Lib:
+    """The built kernel library (built and loaded on first use, never at
+    import)."""
     from repro_torch.kernels import _build
-    lib = _build.load("sample_attr")
-    p = ctypes.c_void_p
-    lib.sample_attr_fold.argtypes = [
-        p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-        p, p, p, p, p, p, p, ctypes.c_int]
-    lib.sample_attr_fold.restype = ctypes.c_int
-    lib.sample_attr_block.restype = ctypes.c_int
-    lib.sample_attr_max_channels.restype = ctypes.c_int
-    lib.sample_attr_error_string.argtypes = [ctypes.c_int]
-    lib.sample_attr_error_string.restype = ctypes.c_char_p
-    return lib
+    return _Lib(_build.load("sample_attr"))
+
+
+def _scratch_sizes(c: int, C: int, tile: int) -> tuple[int, int]:
+    """(tables, value slots) pass 1 needs for ``c`` samples and ``C``
+    channels: one table of ``tile`` records per tile of samples, each
+    record with 2C float64 sums."""
+    tables = -(-c // tile)
+    return tables, tables * tile * 2 * C
+
+
+class _Scratch:
+    """Pass 1's tables (``tbl_id``, ``tbl_cnt`` [tables·tile] int32,
+    ``tbl_val`` [tables·tile·2C] float64, ``tbl_head`` [tables·4] int32:
+    each table's length, first and last id), grown to the largest (c, C)
+    seen and never shrunk."""
+
+    def __init__(self, device, tables: int, vals: int, tile: int):
+        i32 = dict(dtype=torch.int32, device=device)
+        self.tables, self.vals = tables, vals
+        self.tbl_id = torch.empty(tables * tile, **i32)
+        self.tbl_cnt = torch.empty(tables * tile, **i32)
+        self.tbl_val = torch.empty(vals, dtype=torch.float64, device=device)
+        self.tbl_head = torch.empty(tables * 4, **i32)
+
+
+_SCRATCH: dict[tuple, _Scratch] = {}
+
+
+def _scratch(device, stream: int, c: int, C: int, tile: int) -> _Scratch:
+    """The scratch of (device, stream), grown when ``c`` or ``C`` needs
+    more than it holds; otherwise the same tensors as the last call.
+
+    Reuse is safe because kernels on one stream run in order: the next
+    fold's pass 1 starts only after this fold's pass 2 has read the
+    tables. A fold on another stream gets scratch of its own."""
+    tables, vals = _scratch_sizes(c, C, tile)
+    key = (device, stream)
+    s = _SCRATCH.get(key)
+    if s is None or s.tables < tables or s.vals < vals:
+        if s is not None:
+            tables, vals = max(tables, s.tables), max(vals, s.vals)
+        s = _SCRATCH[key] = _Scratch(device, tables, vals, tile)
+    return s
 
 
 def _check(counts, psum, psumsq, ids, pows, valid):
+    """Device, dtype, shape and contiguity of every argument; returns
+    (R, c, C)."""
     dev = ids.device
-    named = {"counts": counts, "psum": psum, "psumsq": psumsq, "ids": ids,
-             "pows": pows, "valid": valid}
-    for name, t in named.items():
+    for name, t, dtype in (("counts", counts, torch.int64),
+                           ("psum", psum, torch.float64),
+                           ("psumsq", psumsq, torch.float64),
+                           ("ids", ids, torch.int32),
+                           ("pows", pows, torch.float64),
+                           ("valid", valid, torch.bool)):
         if t is None:
             continue
         if t.device != dev:
@@ -60,12 +124,7 @@ def _check(counts, psum, psumsq, ids, pows, valid):
                              f"{dev}")
         if not t.is_contiguous():
             raise ValueError(f"sample_attr: {name} must be contiguous")
-    want = {"counts": torch.int64, "psum": torch.float64,
-            "psumsq": torch.float64, "ids": torch.int32,
-            "pows": torch.float64, "valid": torch.bool}
-    for name, dtype in want.items():
-        t = named[name]
-        if t is not None and t.dtype != dtype:
+        if t.dtype != dtype:
             raise TypeError(f"sample_attr: {name} must be {dtype}, got "
                             f"{t.dtype}")
     if ids.ndim != 1 or counts.ndim != 1:
@@ -73,17 +132,20 @@ def _check(counts, psum, psumsq, ids, pows, valid):
     R, c = counts.shape[0], ids.shape[0]
     C = 1 if psum.ndim == 1 else psum.shape[1]
     stat = (R,) if psum.ndim == 1 else (R, C)
-    if tuple(psum.shape) != stat or tuple(psumsq.shape) != stat:
+    if psum.shape != stat or psumsq.shape != stat:
         raise ValueError(f"sample_attr: psum/psumsq must be {stat}, got "
                          f"{tuple(psum.shape)}/{tuple(psumsq.shape)}")
     pw = (c,) if psum.ndim == 1 else (C, c)
-    if tuple(pows.shape) != pw:
+    if pows.shape != pw:
         raise ValueError(f"sample_attr: pows must be {pw}, got "
                          f"{tuple(pows.shape)}")
-    if valid is not None and tuple(valid.shape) != (c,):
+    if valid is not None and valid.shape != (c,):
         raise ValueError(f"sample_attr: valid must be ({c},)")
-    if R >= 2 ** 31 - 1:
+    if R >= _INT32_MAX:
         raise ValueError("sample_attr: num_regions must be < 2^31 - 1")
+    if c >= _INT32_MAX - 1024:
+        raise ValueError("sample_attr: a chunk must hold < 2^31 - 1024 "
+                         "samples")
     return R, c, C
 
 
@@ -94,7 +156,8 @@ def sample_attr_fold(counts, psum, psumsq, ids, pows, valid=None):
     [c], or [R, C] with ``pows`` [C, c]; ``ids`` [c] int32; ``valid`` [c]
     bool or ``None`` (all lanes valid). Masked lanes and ids outside
     [0, R) contribute nothing. On a CUDA tensor this launches the kernel
-    (bitwise repeatable: no floating-point atomics) or raises.
+    (bitwise repeatable: no floating-point atomics) or raises; its scratch
+    is kept per (device, stream) and reused from call to call.
     """
     if ids.device.type == "cpu":
         return sample_attr_fold_ref(counts, psum, psumsq, ids, pows, valid)
@@ -102,27 +165,23 @@ def sample_attr_fold(counts, psum, psumsq, ids, pows, valid=None):
         raise ValueError(f"sample_attr: unsupported device {ids.device}")
     R, c, C = _check(counts, psum, psumsq, ids, pows, valid)
     lib = _kernel()
-    if C > lib.sample_attr_max_channels():
-        raise ValueError(f"sample_attr: at most "
-                         f"{lib.sample_attr_max_channels()} channels, got {C}")
+    if C > lib.max_channels:
+        raise ValueError(f"sample_attr: at most {lib.max_channels} "
+                         f"channels, got {C}")
     if c == 0:
         return counts, psum, psumsq
-    block = lib.sample_attr_block()
-    slots = -(-c // block) * block
     dev = ids.device
-    part_id = torch.empty(slots, dtype=torch.int32, device=dev)
-    part_cnt = torch.empty(slots, dtype=torch.int32, device=dev)
-    part_val = torch.empty(slots * 2 * C, dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sample_attr_fold(
+    s = _scratch(dev, stream, c, C, lib.tile)
+    err = lib.fold(
         ids.data_ptr(), pows.data_ptr(),
         None if valid is None else valid.data_ptr(), c, C, R,
         counts.data_ptr(), psum.data_ptr(), psumsq.data_ptr(),
-        part_id.data_ptr(), part_cnt.data_ptr(), part_val.data_ptr(),
-        stream, dev.index)
+        s.tbl_id.data_ptr(), s.tbl_cnt.data_ptr(), s.tbl_val.data_ptr(),
+        s.tbl_head.data_ptr(), stream, dev.index)
     if err != 0:
         raise RuntimeError("sample_attr kernel launch failed: "
-                           + lib.sample_attr_error_string(err).decode())
+                           + lib.error_string(err).decode())
     sample_attr_fold.launches += 1
     return counts, psum, psumsq
 

@@ -3,6 +3,10 @@ takes on the CPU) against the JAX reference's Pallas kernel in interpret
 mode, at the reference's own shapes and tolerances
 (``tests/test_kernels.py``: float32 1e-5, bfloat16 2e-2)."""
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -68,3 +72,64 @@ def test_rmsnorm_rejects_other_devices():
     x = torch.empty((4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.rmsnorm(x, torch.empty(8, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# The launch plan and the C interface (nothing here builds the kernel).
+# ---------------------------------------------------------------------------
+
+def test_c_signature_matches_declared_argtypes():
+    """ctypes passes arguments by the declared types alone: a mismatch with
+    the C signature would corrupt the call silently."""
+    src = Path(ops.__file__).with_name("rmsnorm.cu").read_text()
+    m = re.search(r"int rmsnorm_fwd\(([^)]*)\)", src)
+    assert m, "rmsnorm_fwd not found in rmsnorm.cu"
+    scalars = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+               "float": ctypes.c_float}
+    got = []
+    for p in m.group(1).split(","):
+        decl = " ".join(p.split()).rsplit(" ", 1)[0]
+        got.append(ctypes.c_void_p if decl.endswith("*") else scalars[decl])
+    assert tuple(got) == ops._ARGTYPES
+
+
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [1, 33, 128, 768, 2048, 8192, 16384])
+def test_plan_covers_the_row(d, dtype, aligned):
+    """Every plan is one rmsnorm.cu compiles and accepts: 16-byte vectors
+    only where d and the pointers allow them; the fewest lanes (a power of
+    two, at most 32) that give each lane a vector, the rest of the warp on
+    other rows; the least compiled register count that holds the row, or
+    the looped form past 64 elements a lane and on the scalar path."""
+    vec, lanes, rows, per_lane = ops._plan(d, dtype, aligned)
+    wide = 16 // _ESIZE[dtype]
+    assert vec == (wide if aligned and d % wide == 0 else 1)
+    nvec = d // vec
+    assert d % vec == 0
+    assert lanes & (lanes - 1) == 0 and lanes * rows == 32
+    assert lanes >= min(32, nvec) and (lanes == 1 or lanes // 2 < nvec)
+    if per_lane:
+        assert vec > 1 and per_lane in ops._PER_LANE
+        assert per_lane * lanes >= nvec
+        assert per_lane * vec <= ops._LANE_ELEMS
+        assert all(p * lanes < nvec for p in ops._PER_LANE if p < per_lane)
+    else:
+        assert vec == 1 or -(-nvec // lanes) * vec > ops._LANE_ELEMS
+
+
+@pytest.mark.parametrize("d,dtype,aligned,want", [
+    (128, torch.bfloat16, True, (8, 16, 2, 1)),      # qk-norm: 2 rows a warp
+    (2048, torch.bfloat16, True, (8, 32, 1, 8)),     # block norm
+    (2048, torch.float32, True, (4, 32, 1, 16)),
+    (8192, torch.float32, True, (4, 32, 1, 0)),      # looped
+    (768, torch.float16, True, (8, 32, 1, 4)),
+    (128, torch.bfloat16, False, (1, 32, 1, 0)),     # unaligned: scalar
+    (33, torch.float32, True, (1, 32, 1, 0)),
+    (1, torch.bfloat16, True, (1, 1, 32, 0))])
+def test_plan_at_the_model_shapes(d, dtype, aligned, want):
+    assert ops._plan(d, dtype, aligned) == want

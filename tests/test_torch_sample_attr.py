@@ -3,6 +3,10 @@ against the JAX reference's kernel in interpret mode and its
 carry-update seam (neither needs the reference's device pipeline, so
 this file imports the reference as it is)."""
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,3 +188,138 @@ def test_as_aggregate_fn_defaults_to_the_gpu():
         pytest.skip("a GPU is present; the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.as_aggregate_fn()
+
+
+# ---------------------------------------------------------------------------
+# The C interface and the wrapper's scratch (nothing here builds a kernel).
+# ---------------------------------------------------------------------------
+
+def _c_argtypes(src: str, fn: str):
+    """ctypes types of ``fn``'s parameters as declared in the source: every
+    pointer is a ``c_void_p``."""
+    m = re.search(rf"int {fn}\(([^)]*)\)", src)
+    assert m, f"{fn} not found"
+    scalars = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+               "float": ctypes.c_float}
+    out = []
+    for p in m.group(1).split(","):
+        decl = " ".join(p.split()).rsplit(" ", 1)[0]
+        out.append(ctypes.c_void_p if decl.endswith("*") else scalars[decl])
+    return tuple(out)
+
+
+def test_c_signature_matches_declared_argtypes():
+    """ctypes passes arguments by the declared types alone: a mismatch with
+    the C signature would corrupt the call silently."""
+    src = Path(ops.__file__).with_name("sample_attr.cu").read_text()
+    assert _c_argtypes(src, "sample_attr_fold") == ops._ARGTYPES
+
+
+@pytest.mark.parametrize("c,C,want", [(65536, 4, (256, 65536 * 8)),
+                                      (1, 1, (1, 512)),
+                                      (257, 2, (2, 2048))])
+def test_scratch_sizes(c, C, want):
+    assert ops._scratch_sizes(c, C, 256) == want
+
+
+def test_scratch_is_reused_and_grows(monkeypatch):
+    """The scratch of one (device, stream) is allocated once and reused;
+    a larger c or C grows it (never shrinks it); another stream gets its
+    own."""
+    monkeypatch.setattr(ops, "_SCRATCH", {})
+    cpu = torch.device("cpu")
+    a = ops._scratch(cpu, 7, 65536, 4, 256)
+    assert ops._scratch(cpu, 7, 65536, 4, 256) is a
+    assert ops._scratch(cpu, 7, 1000, 1, 256) is a          # smaller: reused
+    assert a.tbl_id.numel() == a.tbl_cnt.numel() == 65536
+    assert a.tbl_val.numel() == 65536 * 8 and a.tbl_head.numel() == 256 * 4
+    b = ops._scratch(cpu, 7, 65536, 8, 256)                  # more channels
+    assert b is not a and b.tbl_val.numel() == 65536 * 16
+    d = ops._scratch(cpu, 7, 70000, 1, 256)                  # more samples
+    assert d is not b and d.tables == 274
+    assert d.vals == 65536 * 16                               # kept C=8 room
+    assert ops._scratch(cpu, 7, 65536, 8, 256) is d
+    assert ops._scratch(cpu, 8, 1000, 1, 256) is not d       # other stream
+    assert len(ops._SCRATCH) == 2
+
+
+# ---------------------------------------------------------------------------
+# The kernel's summation order (ref.sample_attr_fold_emulated) against the
+# reference kernel and the plain fold.
+# ---------------------------------------------------------------------------
+
+def _runs(n, R, seed, *, channels=None, mean_run=1000):
+    """A run-structured id stream like the profiler's chunks: runs of one
+    region with lengths drawn around ``mean_run``, some lanes masked."""
+    rng = np.random.default_rng(seed)
+    k = n // (mean_run // 2) + 2
+    lens = rng.integers(mean_run // 2, 3 * mean_run // 2, k)
+    ids = np.repeat(rng.integers(0, R, k), lens)[:n].astype(np.int32)
+    shape = (n,) if channels is None else (channels, n)
+    pw = 50.0 + rng.random(shape) * 150.0
+    valid = rng.random(n) < 0.97
+    return ids, pw, valid
+
+
+def _fold_both(ids, pw, valid, R, channels):
+    stat = (R,) if channels is None else (R, channels)
+    a = [torch.zeros(R, dtype=torch.int64),
+         torch.zeros(stat, dtype=torch.float64),
+         torch.zeros(stat, dtype=torch.float64)]
+    b = [x.clone() for x in a]
+    args = (torch.from_numpy(ids), torch.from_numpy(pw),
+            None if valid is None else torch.from_numpy(valid))
+    ref.sample_attr_fold_emulated(*a, *args)
+    ref.sample_attr_fold_ref(*b, *args)
+    return a, b
+
+
+@pytest.mark.parametrize("stream", ["uniform", "runs"])
+@pytest.mark.parametrize("n,R,channels", [(65536, 4096, 4), (70000, 300, None),
+                                          (5000, 16, 2), (300, 7, 8)])
+def test_emulated_order_matches_plain_fold(stream, n, R, channels):
+    """Tolerance rtol 1e-10 (as on the card): both sum in float64, only the
+    order differs. 70 000 samples span two batches of 256 tables."""
+    make = _stream if stream == "uniform" else _runs
+    kw = dict(pad=True) if stream == "uniform" else {}
+    ids, pw, valid = make(n, R, n + R, channels=channels, **kw)
+    got, want = _fold_both(ids, pw, valid, R, channels)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-10, atol=0.0)
+
+
+@pytest.mark.parametrize("stream", ["uniform", "runs"])
+def test_emulated_order_matches_reference_kernel(stream):
+    """Against the reference's Pallas kernel in interpret mode, which sums
+    float32 powers in float32: the reference's own limit (rtol 1e-5)."""
+    n, R = 8192, 64
+    if stream == "uniform":
+        ids, pw, _ = _stream(n, R, 11)
+    else:
+        ids, pw, _ = _runs(n, R, 11)
+    pw32 = pw.astype(np.float32)
+    got = [torch.zeros(R, dtype=torch.int64),
+           torch.zeros(R, dtype=torch.float64),
+           torch.zeros(R, dtype=torch.float64)]
+    ref.sample_attr_fold_emulated(*got, torch.from_numpy(ids),
+                                  torch.from_numpy(pw32.astype(np.float64)))
+    cr, sr, sqr = rops.sample_attr(jnp.asarray(ids), jnp.asarray(pw32), R,
+                                   True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(cr))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(sr), rtol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(sqr), rtol=1e-5)
+
+
+def test_emulated_fold_is_in_place_and_masks_nonfinite_lanes():
+    ids = torch.tensor([0, 1, 1, 2, 1], dtype=torch.int32)
+    pw = torch.tensor([1.0, 2.0, float("nan"), 4.0, 3.0], dtype=torch.float64)
+    valid = torch.tensor([True, True, False, True, True])
+    carry = (torch.ones(3, dtype=torch.int64),
+             torch.ones(3, dtype=torch.float64),
+             torch.ones(3, dtype=torch.float64))
+    out = ref.sample_attr_fold_emulated(*carry, ids, pw, valid)
+    assert all(a is b for a, b in zip(out, carry))
+    assert carry[0].tolist() == [2, 3, 2]
+    assert carry[1].tolist() == [2.0, 6.0, 5.0]
+    assert carry[2].tolist() == [2.0, 14.0, 17.0]
