@@ -12,12 +12,27 @@ runs these phases, and fails (non-zero exit) if any check fails:
 2. parity   — ``EnergyProfiler.profile_timeline_streaming(pipeline=
               "device")`` on the GPU against the port's numpy oracle for
               every trace sensor at D=1 and D=3, ~10^6 samples each;
+   combo-parity — the combination pipeline (``run_combo_pipeline`` and
+              ``profile_multiworker_streaming(pipeline="device")``) on the
+              GPU against ``reference_combo_pipeline`` for W in {1, 4}
+              workers, D in {1, 3}, every trace sensor, ~10^6 samples
+              each (combination order, n and counts equal, sums to
+              rtol), two runs bitwise equal, one bounded run;
 3. full     — the profiler's main path at full size: one profiling run of
               a 4096-region, 2^20-interval, 3-rail timeline at >= 10^8
               samples (chunk 65536), with the launch counters set to 0
               just before and read just after; it runs before any
               torch.profiler session, since a process that has traced
               the device pays more host time per launch afterwards;
+   combo-full — the combination path at full size: 16 phase-shifted
+              workers of that timeline (4-word keys), >= 5·10^7 samples,
+              10^4-10^5 combinations, counters set to 0 just before and
+              read just after (one fold per chunk plus one per miss
+              chunk); wall per layer of one steady-state chunk;
+   host-seam — the host chunk seam with ``chunked_aggregate_fn`` on the
+              GPU against the numpy seam; host-session — a short
+              ``host_session`` around GPU work, marked by ``region`` and
+              by ``mark_in_jit``;
 4. kernel   — every kernel against its plain PyTorch version at the
               shapes its path gives it, at the stated tolerances:
               ``sample_attr`` on uniform ids (equal counts, sums to rtol,
@@ -38,6 +53,10 @@ runs these phases, and fails (non-zero exit) if any check fails:
               ``sample_attr`` row; then wall time per call of each layer
               of one chunk and, from a torch.profiler trace, kernels per
               chunk and the device's busy share (measured, not checked);
+   combo-fold — ``sample_attr`` on combo-full's steady chunk at R = the
+              table capacity, held and timed as in phase 4 (the kernel
+              line's second ``sample_attr`` path), and kernels per chunk
+              of the combination step;
 6. model    — the dense-transformer serving path at full size:
               ``qwen3-1.7b`` (28 layers, d_model 2048, random weights from
               a seed) prefills 4 prompts of 2048 tokens through the flash
@@ -484,9 +503,10 @@ def clock_phase():
         "(4 (seed, k) cases)")
 
 
-def parity_timeline(domains):
+def parity_timeline(domains, seed=2):
     """64 regions x 16 invocations x 64 steps = 65536 intervals, t_exec
-    ~ 10^3 s, so 1 ms sampling (RAPL's floor) gives ~10^6 samples."""
+    ~ 10^3 s, so 1 ms sampling (RAPL's floor) gives ~10^6 samples;
+    ``seed`` draws the durations and powers (one per worker)."""
     import numpy as np
     from repro_torch.core.timeline import RegionCost, synthesize
     rng = np.random.default_rng(1)
@@ -494,7 +514,7 @@ def parity_timeline(domains):
                         invocations=16)
              for i, (f, b) in enumerate(zip(10 ** rng.uniform(11.5, 12.5, 64),
                                             10 ** rng.uniform(9, 10.5, 64)))]
-    return synthesize(costs, steps=64, seed=2, domains=domains)
+    return synthesize(costs, steps=64, seed=seed, domains=domains)
 
 
 def parity_phase():
@@ -555,6 +575,119 @@ def parity_phase():
                 f"counts equal, sums rtol {PIPELINE_RTOL}, estimates "
                 f"equal; GPU run {t_gpu:.3f} s"
                 + (", two GPU runs bitwise equal" if name == "rapl" else ""))
+
+
+def _combo_stats_check(what, got, n, want, wn, rtol):
+    """Same combinations in the same order, equal n and counts, every
+    channel's sums within ``rtol``."""
+    import numpy as np
+    check(n == wn, f"{what}: n {n} == {wn}")
+    check(got.interner.combos == want.interner.combos,
+          f"{what}: combination order")
+    g, w = got.agg.channel_statistics(), want.agg.channel_statistics()
+    check(np.array_equal(g[0], w[0]), f"{what}: counts")
+    for a, b in zip(g[1:], w[1:]):
+        check(np.allclose(a, b, rtol=rtol, atol=0.0), f"{what}: sums "
+              f"rtol={rtol}")
+
+
+def _region_counts(agg, R):
+    """Samples per region of the first worker (the region axis of a
+    bounded table's ``other`` rows)."""
+    import numpy as np
+    rows = np.asarray(agg.interner.combos, np.int64)
+    return np.bincount(rows[:, 0], weights=agg.agg.counts, minlength=R)
+
+
+def combo_parity_phase():
+    """The combination pipeline on the GPU against the port's numpy oracle
+    (``reference_combo_pipeline``) for W in {1, 4} workers (one parity
+    timeline per worker, seeds 2, 3, ...), D in {1, 3}, every trace
+    sensor, ~10^6 samples each: the combination order, n and counts
+    equal, sums to ``PIPELINE_RTOL``; the same through
+    ``EnergyProfiler.profile_multiworker_streaming(pipeline="device")``
+    against the oracle's estimates; two rapl runs bitwise equal; and one
+    bounded run (``max_combinations`` a tenth of the distinct count)."""
+    import numpy as np
+    from repro_torch.core import device_pipeline as dp, sensors
+    from repro_torch.core.profiler import EnergyProfiler
+    specs = {"instant": sensors.InstantTraceSensor,
+             "rapl": sensors.RaplTraceSensor,
+             "ina231": sensors.Ina231TraceSensor}
+    for W in (1, 4):
+        for domains in (False, True):
+            tls = [parity_timeline(domains, seed=2 + w) for w in range(W)]
+            t_end = min(t.t_exec for t in tls)
+            names = tls[0].names
+            dtl = dp.DeviceTimeline.from_timelines(tls, device="cuda")
+            D = dtl.num_domains
+            for name, cls in specs.items():
+                spec = cls.make_spec(domains=dtl.domains)
+                period = max(spec.effective_min_period(), t_end / 1.05e6)
+                kw = dict(period=period, jitter=0.2 * period, seed=5,
+                          chunk_size=65536)
+                what = f"combo-parity {name} W={W} D={D}"
+                stats = {}
+                t0 = time.perf_counter()
+                got, n = dp.run_combo_pipeline(dtl, spec, stats=stats, **kw)
+                t_gpu = time.perf_counter() - t0
+                want, wn = dp.reference_combo_pipeline(
+                    tls, lambda tl: spec, **kw)
+                _combo_stats_check(what, got, n, want, wn, PIPELINE_RTOL)
+                prof = EnergyProfiler(period=period, jitter=0.2 * period,
+                                      seed=5, device="cuda")
+                est, rows = prof.profile_multiworker_streaming(
+                    tls, sensor=name, chunk_size=65536, pipeline="device")
+                oracle, orows = want.estimates(t_end, names)
+                check(rows == orows, f"{what}: estimate combinations")
+                check(np.array_equal(est.table.n_samples,
+                                     oracle.table.n_samples),
+                      f"{what}: estimate counts")
+                # First moments only: a combination whose few samples all
+                # read one power has a sample variance that is zero up to
+                # rounding, so its interval bounds differ by ~sqrt(eps)
+                # between two summation orders; they are functions of
+                # the sums checked above.
+                for f in ("t_hat", "pow_hat", "e_hat", "pow_rails",
+                          "e_rails"):
+                    a, b = getattr(est.table, f), getattr(oracle.table, f)
+                    check((a is None and b is None) or np.allclose(
+                        a, b, rtol=PIPELINE_RTOL, atol=0.0),
+                          f"{what}: estimate {f}")
+                extra = ""
+                if name == "rapl":
+                    again, _ = dp.run_combo_pipeline(dtl, spec, **kw)
+                    check(again.interner.combos == got.interner.combos
+                          and all(np.array_equal(a, b) for a, b in zip(
+                              again.agg.channel_statistics(),
+                              got.agg.channel_statistics())),
+                          f"{what}: bitwise repeat")
+                    extra = ", two GPU runs bitwise equal"
+                if name == "instant" and W == 4 and D == 1:
+                    k = max(1, len(got.interner) // 10)
+                    bstats = {}
+                    bounded, bn = dp.run_combo_pipeline(
+                        dtl, spec, max_combinations=k, stats=bstats, **kw)
+                    R = len(names)
+                    check(bn == n, f"{what} bounded: n")
+                    check(np.array_equal(_region_counts(bounded, R),
+                                         _region_counts(got, R)),
+                          f"{what} bounded: per-region counts")
+                    check(bstats["tail_folds"] > 0,
+                          f"{what} bounded: tail_folds > 0")
+                    check(len(bounded.interner) <= k + R,
+                          f"{what} bounded: rows <= k + regions")
+                    extra += (f"; bounded k={k}: {len(bounded.interner)} "
+                              f"rows, tail_folds {bstats['tail_folds']}, "
+                              f"{bstats['miss_chunks']} of "
+                              f"{bstats['chunks']} chunks missed, "
+                              f"per-region counts equal")
+                log(f"{what}: n={n} samples, {len(got.interner)} "
+                    f"combinations, {stats['miss_chunks']} of "
+                    f"{stats['chunks']} chunks missed; order, counts equal, "
+                    f"sums rtol {PIPELINE_RTOL}, first-moment estimates "
+                    f"equal; GPU run {t_gpu:.3f} s" + extra)
+            del dtl
 
 
 # ---------------------------------------------------------------------------
@@ -643,9 +776,10 @@ class FullChunk:
         self.root = threefry.PRNGKey(0)
         self.u0 = dp._phase(self.root, self.period)
         self.prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
-        self.ids, self.pows, self.valid, _ = dp._chunk_samples(
+        rid_mat, self.pows, self.valid, _ = dp._chunk_samples(
             self.dtl, self.spec, self.root, self.u0, k, c, self.period,
             self.jitter, self.prev)
+        self.ids = rid_mat[0]
         self.R, self.C = self.dtl.num_regions, self.pows.shape[0]
         ids = self.ids[self.valid].cpu().numpy()
         runs = 1 + int((ids[1:] != ids[:-1]).sum()) if ids.size else 0
@@ -671,7 +805,7 @@ def breakdown_phase(tl):
     ch = FullChunk(tl, dev)
     dtl, spec, root, u0, k, c = ch.dtl, ch.spec, ch.root, ch.u0, ch.k, ch.c
     period, jitter, prev = ch.period, ch.jitter, ch.prev
-    arrs = tuple(a[0] for a in dtl.arrays())
+    arrs = dtl.arrays()
     ends, bounds, eint, powers, rids, m_true, grid, cell = arrs
     t_raw = dp._raw_chunk_times(root, u0, k, c, period, jitter, dev)
     valid = t_raw < dtl.t_end
@@ -682,19 +816,10 @@ def breakdown_phase(tl):
     row = fold_row(f"full chunk k={k}", R, C, rid, chan, ch.valid)
     carry = fresh_carry(R, C, dev)
 
-    def wall_ms(fn, iters=50):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / iters * 1e3
-
     def chunk():
         r, ch, v, _ = dp._chunk_samples(dtl, spec, root, u0, k, c, period,
                                         jitter, prev)
-        ops.sample_attr_fold(*carry, r, ch, v)
+        ops.sample_attr_fold(*carry, r[0], ch, v)
 
     layers = {
         "clock": lambda: dp._raw_chunk_times(root, u0, k, c, period,
@@ -705,7 +830,7 @@ def breakdown_phase(tl):
         "fold": lambda: ops.sample_attr_fold(*carry, rid, chan, valid),
         "chunk": chunk,
     }
-    walls = {name: wall_ms(fn) for name, fn in layers.items()}
+    walls = {name: wall_ms(fn, iters=50) for name, fn in layers.items()}
     log("breakdown (wall ms per call, full cell shapes): " + ", ".join(
         f"{name} {ms:.3f}" for name, ms in walls.items()))
     chunks = 20
@@ -734,6 +859,350 @@ def breakdown_phase(tl):
                     f"{e.self_device_time_total / 1e3 / chunks:.4f} ms"
                     for e in top))
     return row
+
+
+# ---------------------------------------------------------------------------
+# The combination pipeline at full size.
+# ---------------------------------------------------------------------------
+
+COMBO_WORKERS = 16
+COMBO_SAMPLES = 52_000_000
+# Workers cross each boundary of the shared interval structure this many
+# sample periods apart: every window between two crossings holds at least
+# two samples (their gaps are at most period + jitter = 1.2 periods), so
+# each step already shows every transition pattern.
+COMBO_SHIFT = 2.5
+
+
+def combo_timelines(tl, period):
+    """``COMBO_WORKERS`` phase-shifted copies of ``tl``, built as the
+    reference's fleet benchmark builds its workers
+    (benchmarks/pipeline.py): worker w leads with a pad interval of
+    ``w·COMBO_SHIFT·period`` (+1 ns) in the first interval's region and
+    power. The spread (15 · 2.5 periods) stays under the shortest region
+    block (16 invocations, ~185 periods at this period), so a row holds
+    at most two regions: the combinations are each boundary's transition
+    patterns, 4096 boundaries × (W - 1) mixed rows plus the 4096 pure
+    ones."""
+    import numpy as np
+    from repro_torch.core.timeline import Timeline
+    ids, durs, pows = tl.region_ids, tl.durations, tl.powers
+    rails = tl.rail_powers
+    out = []
+    for w in range(COMBO_WORKERS):
+        off = w * COMBO_SHIFT * period + 1e-9
+        out.append(Timeline(
+            np.concatenate([ids[:1], ids]), np.concatenate([[off], durs]),
+            np.concatenate([pows[:1], pows]), tl.names,
+            rail_powers=np.concatenate([rails[:1], rails]),
+            domains=tl.domains))
+    return out
+
+
+class ComboChunk:
+    """Chunk ``k`` of the combo-full run in the steady state: the table
+    the run ended with, and the ids, channels and mask its step folds
+    (every row found, so the mask is the valid lanes)."""
+
+    def __init__(self, dtl, spec, interner, period, k, c=65536):
+        import torch
+        from repro_torch.core import device_pipeline as dp, threefry
+        self.dtl, self.spec, self.k, self.c = dtl, spec, k, c
+        self.period, self.jitter = period, 0.2 * period
+        self.pack = dp._pack_spec(dtl.num_regions, dtl.num_workers)
+        self.cap = dp._table_cap(len(interner))
+        self.table = dp._build_table(interner, self.cap, self.pack,
+                                     dtl.device)
+        self.root = threefry.PRNGKey(0)
+        self.u0 = dp._phase(self.root, period)
+        self.prev = torch.full((), -1.0, dtype=torch.float64,
+                               device=dtl.device)
+        rid_mat, self.pows, valid, _ = self.samples()
+        self.ids, found = self.table.lookup(rid_mat)
+        check(not bool((valid & ~found).any()),
+              f"combo chunk k={k}: every row in the table")
+        self.valid = valid & found
+        self.C = self.pows.shape[0]
+        ok = self.ids[self.valid]
+        self.touched = int(torch.unique(ok).numel())
+        log(f"combo chunk k={k}: {int(valid.sum())} of {c} lanes valid, "
+            f"{self.touched} combinations touched, table capacity "
+            f"{self.cap}, {self.pack[2]} key words")
+
+    def samples(self):
+        from repro_torch.core import device_pipeline as dp
+        return dp._chunk_samples(self.dtl, self.spec, self.root, self.u0,
+                                 self.k, self.c, self.period, self.jitter,
+                                 self.prev)
+
+    def step(self, carry, read_flag=True):
+        """The steady-state pass of run_combo_pipeline's chunk loop:
+        sample, look up, fold, read the miss flag (``read_flag=False``
+        leaves the flag on the device, so the host may run ahead)."""
+        from repro_torch.kernels.sample_attr import ops
+        rid_mat, chan, valid, _ = self.samples()
+        ids, found = self.table.lookup(rid_mat)
+        any_miss = (valid & ~found).any()
+        ops.sample_attr_fold(*carry, ids, chan, valid & found & ~any_miss)
+        return bool(any_miss) if read_flag else any_miss
+
+    def layer_walls(self):
+        """Host wall ms per call (after a sync) of each layer of one
+        chunk: clock, lookup, sensor, pack + search, fold, miss-flag read,
+        the whole step, and the step without its flag read (what the
+        per-chunk sync costs is the difference)."""
+        import torch
+        from repro_torch.core import device_pipeline as dp
+        from repro_torch.kernels.sample_attr import ops
+        dtl = self.dtl
+        arrs = dtl.arrays()
+        ends, grid, cell = arrs[0], arrs[6], arrs[7]
+        dev = dtl.device
+        t_raw = dp._raw_chunk_times(self.root, self.u0, self.k, self.c,
+                                    self.period, self.jitter, dev)
+        valid = t_raw < dtl.t_end
+        t = torch.clamp_max(t_raw, dtl.t_end)
+        cnt = dp._count_le(ends, grid, cell, t, dtl.grid_k)
+        rid_mat, _, _, _ = self.samples()
+        _, found = self.table.lookup(rid_mat)
+        carry = fresh_carry(self.cap, self.C, dev)
+        layers = {
+            "clock": lambda: dp._raw_chunk_times(
+                self.root, self.u0, self.k, self.c, self.period,
+                self.jitter, dev),
+            "lookup": lambda: dp._count_le(ends, grid, cell, t, dtl.grid_k),
+            "sensor": lambda: dp._sensor_powers(self.spec, arrs, t, cnt,
+                                                valid, self.prev,
+                                                dtl.grid_k),
+            "pack+search": lambda: self.table.lookup(rid_mat),
+            "fold": lambda: ops.sample_attr_fold(*carry, self.ids,
+                                                 self.pows, self.valid),
+            "miss-flag read": lambda: bool((valid & ~found).any()),
+            "chunk": lambda: self.step(carry),
+            "chunk without the flag read": lambda: self.step(
+                carry, read_flag=False),
+        }
+        return {name: wall_ms(fn) for name, fn in layers.items()}
+
+
+def wall_ms(fn, iters=20):
+    """Host wall ms per call of ``fn`` (synchronised before and after)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def combo_full_phase(tl):
+    """The multi-worker combination path at full size: 16 phase-shifted
+    workers (:func:`combo_timelines`) of the full cell's timeline (4096
+    regions, 2^20 intervals, 3 rails), 12-bit ids in 4 int64 key words,
+    ``instant`` sensor, chunk 65536, >= 5·10^7 samples; the launch
+    counters set to 0 just before ``run_combo_pipeline`` (the device
+    branch of ``profile_multiworker_streaming``, called directly for its
+    ``stats``) and read just after. Checks the sample count, the
+    estimates, 10^4-10^5 combinations, and one ``sample_attr`` launch per
+    chunk plus one per miss chunk. Then the wall per layer of one
+    steady-state chunk."""
+    import torch
+    from repro_torch.core import device_pipeline as dp, sensors
+    from repro_torch.kernels.sample_attr import ops
+    period = tl.t_exec / COMBO_SAMPLES
+    jitter = 0.2 * period
+    chunk = 65536
+    t0 = time.perf_counter()
+    tls = combo_timelines(tl, period)
+    dtl = dp.DeviceTimeline.from_timelines(tls, device="cuda")
+    del tls
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    spec = sensors.InstantTraceSensor.make_spec(domains=dtl.domains)
+    pack = dp._pack_spec(dtl.num_regions, dtl.num_workers)
+    torch.cuda.reset_peak_memory_stats()
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    stats = {}
+    t0 = time.perf_counter()
+    agg, n = dp.run_combo_pipeline(dtl, spec, period=period, jitter=jitter,
+                                   seed=0, chunk_size=chunk, stats=stats)
+    secs = time.perf_counter() - t0
+    launches = ops.sample_attr_fold.launches
+    others = {c.__name__: c.launches for c in counters
+              if c is not ops.sample_attr_fold}
+    peak = torch.cuda.max_memory_allocated()
+    est, rows = agg.estimates(dtl.t_end, tl.names)
+    distinct = len(agg.interner)
+    chunks, misses = stats["chunks"], stats["miss_chunks"]
+    lo = int((dtl.t_end - period - jitter) // period)
+    hi = int(dtl.t_end // period) + 1
+    check(lo <= n <= hi, f"combo-full: n={n} within [{lo}, {hi}]")
+    check(n >= 50_000_000, "combo-full: >= 5·10^7 samples")
+    check(int(est.table.n_samples.sum()) == n,
+          "combo-full: sum of counts == n")
+    check(pack[2] == 4, f"combo-full: {pack[2]} key words == 4")
+    check(10_000 <= distinct <= 100_000,
+          f"combo-full: {distinct} combinations within 10^4-10^5")
+    check(launches == chunks + misses,
+          f"combo-full: sample_attr launches {launches} == chunks {chunks} "
+          f"+ miss chunks {misses}")
+    check(not any(others.values()),
+          f"combo-full: other kernels launched {others}")
+    check(misses < chunks / 2, f"combo-full: {misses} of {chunks} chunks "
+          f"missed; steady state expected")
+    check(bool((est.table.pow_hat > 0).all()) and all(
+        bool(torch.isfinite(torch.as_tensor(getattr(est.table, f))).all())
+        for f in ("pow_hat", "e_hat", "e_rails")),
+        "combo-full: finite positive estimates")
+    cap = dp._table_cap(distinct)
+    log(f"combo-full: W={dtl.num_workers} workers, {n} samples in {chunks} "
+        f"chunks, {secs:.3f} s ({n / secs:.4e} samples/s); {misses} miss "
+        f"chunks ({stats['miss_seconds']:.3f} s of host wall in the miss "
+        f"path), {distinct} combinations, table capacity {cap}, "
+        f"{pack[2]} key words ({pack[0]} bits a region); sample_attr "
+        f"launches {launches}; peak device memory {peak / 2 ** 20:.1f} "
+        f"MiB; timelines built and uploaded in {build_s:.1f} s")
+    ch = ComboChunk(dtl, spec, agg.interner, period, k=chunks - 2, c=chunk)
+    walls = ch.layer_walls()
+    log(f"combo-full breakdown (wall ms per call, chunk k={ch.k}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return dict(n=n, chunks=chunks, miss_chunks=misses, seconds=secs,
+                launches=launches, peak_bytes=peak, distinct=distinct,
+                cap=cap, walls=walls, chunk=ch)
+
+
+def combo_fold_phase(combo):
+    """``sample_attr`` on one steady-state chunk of combo-full at R = the
+    table capacity, held and timed by :func:`fold_row` (the kernel
+    line's second ``sample_attr`` path); then kernels per chunk and the
+    device's busy share from a torch.profiler trace of whole chunks."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ch = combo["chunk"]
+    row = fold_row(f"combo chunk k={ch.k}", ch.cap, ch.C, ch.ids, ch.pows,
+                   ch.valid)
+    carry = fresh_carry(ch.cap, ch.C, ch.dtl.device)
+    ch.step(carry)
+    chunks = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            ch.step(carry)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    launched = sum(e.count for e in kern)
+    if busy_us <= 0:
+        log("combo breakdown: device time not measured (the profiler saw "
+            "no device events)")
+        return row
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"combo breakdown (profiled, {chunks} chunks): "
+        f"{launched / chunks:.0f} kernels per chunk, device busy "
+        f"{busy_us / 1e3 / chunks:.3f} ms of {wall * 1e3 / chunks:.3f} ms "
+        f"wall per chunk (busy share {busy_us / 1e6 / wall:.3f}); top "
+        f"kernels by device time: "
+        + "; ".join(f"{e.key[:48]} x{e.count // chunks} "
+                    f"{e.self_device_time_total / 1e3 / chunks:.4f} ms"
+                    for e in top))
+    row["kernels_per_chunk"] = launched / chunks
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Host seam and host sessions.
+# ---------------------------------------------------------------------------
+
+
+def host_seam_phase():
+    """``profile_timeline_streaming(pipeline="host")`` with the kernel
+    plugged into the host chunk seam (``chunked_aggregate_fn`` on the
+    GPU) against the same call with the numpy aggregation, on the parity
+    timeline at D=1 and D=3: counts equal, estimates to
+    ``PIPELINE_RTOL``, and the kernel launched."""
+    import numpy as np
+    from repro_torch.core.profiler import EnergyProfiler
+    from repro_torch.kernels.sample_attr import ops
+    for domains in (False, True):
+        tl = parity_timeline(domains)
+        period = 1e-3
+        prof = EnergyProfiler(period=period, jitter=0.2 * period, seed=5,
+                              device="cuda")
+        ops.sample_attr_fold.launches = 0
+        t0 = time.perf_counter()
+        got = prof.profile_timeline_streaming(
+            tl, sensor="rapl", pipeline="host",
+            aggregate_fn=ops.chunked_aggregate_fn(device="cuda"))
+        secs = time.perf_counter() - t0
+        launches = ops.sample_attr_fold.launches
+        want = prof.profile_timeline_streaming(tl, sensor="rapl",
+                                               pipeline="host")
+        what = f"host-seam D={tl.num_domains}"
+        check(launches > 0, f"{what}: sample_attr launched")
+        check(np.array_equal(got.table.n_samples, want.table.n_samples),
+              f"{what}: counts")
+        for f in ("pow_hat", "pow_lo", "pow_hi", "e_hat"):
+            check(np.allclose(getattr(got.table, f), getattr(want.table, f),
+                              rtol=PIPELINE_RTOL),
+                  f"{what}: estimate {f}")
+        log(f"{what}: n={got.n_total} samples, counts equal, estimates "
+            f"rtol {PIPELINE_RTOL} against the numpy seam; sample_attr "
+            f"launches {launches}; {secs:.3f} s")
+
+
+def host_session_phase(dev):
+    """A short ``host_session`` around named regions of GPU work (a
+    4096² float32 matmul, waited for), once marked by ``region`` and once
+    by ``mark_in_jit`` under ``jit_marking=True``. Checks, as loose as
+    the reference's own: samples taken, the regions in the estimates,
+    Σ t̂ equal to the session's measured time and that within its wall
+    time."""
+    import torch
+    from repro_torch.core import regions
+    from repro_torch.core.profiler import EnergyProfiler
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(4096, 4096, generator=g, device=dev)
+    prof = EnergyProfiler(period=1e-3, jitter=1e-4, device="cuda")
+    for jit_marking in (False, True):
+        name = "gpu_marked" if jit_marking else "gpu_matmul"
+        t0 = time.perf_counter()
+        with prof.host_session(jit_marking=jit_marking) as sess:
+            for _ in range(60):
+                if jit_marking:
+                    regions.mark_in_jit(name)
+                    (x @ x).sum().item()
+                    regions.mark_in_jit("<other>")
+                    time.sleep(0.5e-3)
+                else:
+                    with regions.region(name):
+                        (x @ x).sum().item()
+                    with regions.region("host_sleep"):
+                        time.sleep(0.5e-3)
+        wall = time.perf_counter() - t0
+        est = sess.estimates()
+        what = f"host-session jit_marking={jit_marking}"
+        seen = {r.name: r for r in est.regions if r.n_samples}
+        t_sum = sum(r.t_hat for r in est.regions)
+        check(est.n_total > 0, f"{what}: samples taken")
+        check(name in seen and seen[name].n_samples >= 5,
+              f"{what}: {name} sampled")
+        check(abs(t_sum - est.t_exec) <= 1e-6 * est.t_exec,
+              f"{what}: sum of t_hat == session time")
+        check(0.0 < est.t_exec <= wall, f"{what}: session time within wall")
+        log(f"{what}: {est.n_total} samples over {est.t_exec:.3f} s "
+            f"(wall {wall:.3f} s, sensor "
+            f"{type(sess.sampler.sensor).__name__}); "
+            + ", ".join(f"{k} n={r.n_samples} t_hat={r.t_hat:.4f} s"
+                        for k, r in sorted(seen.items())))
 
 
 # ---------------------------------------------------------------------------
@@ -983,31 +1452,45 @@ def main():
     # the chunk loop is launch-bound (PERF.md).
     clock_phase()
     parity_phase()
+    combo_parity_phase()
     t0 = time.perf_counter()
     tl = full_timeline()
     log(f"full: timeline of {len(tl.names)} regions, {len(tl.region_ids)} "
         f"intervals, {tl.num_domains} rails, t_exec={tl.t_exec:.3f} s "
         f"(synthesized in {time.perf_counter() - t0:.1f} s)")
     full = full_phase(tl)
+    combo = combo_full_phase(tl)
+    host_seam_phase()
+    host_session_phase(dev)
     kernel_phase(dev)
     flash_row = flash_phase(dev)
     rmsnorm_row = rmsnorm_phase(dev)
     fold = breakdown_phase(tl)
-    del tl
+    combo_fold = combo_fold_phase(combo)
+    del tl, combo["chunk"]
     model = model_phase(dev)
     model_breakdown(model)
     for k in ("params", "cache"):
         del model[k]
 
     split = fold.pop("split_ms")
+    combo_fold.pop("split_ms")
+    fold_check = (f"counts equal, sums rtol {KERNEL_RTOL}, bitwise "
+                  f"repeatable, bitwise equal to sample_attr_fold_emulated")
+    region_path = dict(
+        launches=full["launches"], **fold,
+        path="region path: the full run's chunk k=700 (c=65536, R=4096, "
+             "C=4)", check=fold_check)
+    combo_path = dict(
+        launches=combo["launches"], **combo_fold,
+        path=f"combination path: combo-full's steady chunk (c=65536, "
+             f"W={COMBO_WORKERS}, R=capacity {combo['cap']}, C=4)",
+        check=fold_check)
     kernels = [dict(
         name="sample_attr", route="cuda",
         source="src/repro_torch/kernels/sample_attr/sample_attr.cu",
         replaces="src/repro/kernels/sample_attr/sample_attr.py:80",
-        launches=full["launches"], **fold,
-        path="the full run's chunk k=700 (c=65536, R=4096, C=4)",
-        check=f"counts equal, sums rtol {KERNEL_RTOL}, bitwise repeatable, "
-              f"bitwise equal to sample_attr_fold_emulated"),
+        **region_path, paths=[region_path, combo_path]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/"
                     "flash_attention.cu",
@@ -1029,6 +1512,10 @@ def main():
         f"/ run seconds; per kernel: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items()))
         + ")")
+    log(f"kernel share of the combo-full run: "
+        f"{combo['launches'] * combo_fold['ms'] / 1e3 / combo['seconds']:.4f}"
+        f" (launches x {combo_fold['timing']} of the fold on its steady "
+        f"chunk / run seconds)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """ALEA core: fine-grain energy profiling with region (basic-block) sampling.
 
 The port's surface covers what its slices have ported so far: the host
-numpy modules, the single-worker device pipeline, the profiler and the
-region markers (``core.regions``). Exchange, checkpoints, host sessions
-and energy optimisation are not ported yet, and nothing here imports
-them.
+numpy modules, the device pipeline (single-worker and combination), the
+profiler with its host sessions, and the region markers
+(``core.regions``). Exchange, checkpoints and energy optimisation are
+not ported yet, and nothing here imports them.
 """
 
 from repro_torch.core.attribution import (AttributionReport,
@@ -18,7 +18,8 @@ from repro_torch.core.estimator import (AggregateFn, EstimateSet,
                                         z_quantile)
 from repro_torch.core.power_model import (TPU_V5E, HardwareSpec, PowerModel,
                                           PowerModelParams)
-from repro_torch.core.profiler import EnergyProfiler
+from repro_torch.core.profiler import EnergyProfiler, HostSession
+from repro_torch.core.regions import profiling_session, region, registry
 from repro_torch.core.sampler import (HostSampler, RegionMarker,
                                       SampleBuffer, SampleStream,
                                       iter_multiworker_chunks,
@@ -38,7 +39,8 @@ __all__ = [
     "CombinationInterner", "StreamingAggregator",
     "StreamingCombinationAggregator", "stream_estimate",
     "TPU_V5E", "HardwareSpec", "PowerModel", "PowerModelParams",
-    "EnergyProfiler",
+    "EnergyProfiler", "HostSession",
+    "profiling_session", "region", "registry",
     "HostSampler", "RegionMarker", "SampleBuffer", "SampleStream",
     "iter_multiworker_chunks", "iter_sample_chunks", "sample_timeline",
     "RegionCost", "Timeline", "ground_truth", "synthesize",

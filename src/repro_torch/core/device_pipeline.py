@@ -1,8 +1,8 @@
-"""Device-resident sampling→attribution pipeline (ALEA hot path), region half.
+"""Device-resident sampling→attribution pipeline (ALEA hot path).
 
-PyTorch port of the single-worker half of
-``src/repro/core/device_pipeline.py``. The whole per-chunk loop runs on
-the tensors' device (the GPU unless the caller asks for the CPU):
+PyTorch port of ``src/repro/core/device_pipeline.py``. The whole
+per-chunk loop runs on the tensors' device (the GPU unless the caller
+asks for the CPU):
 
 * :class:`DeviceTimeline` — the sampling substrate as tensors: interval
   ``ends``, the cumulative energy integral, ``powers`` and ``region_ids``,
@@ -18,8 +18,10 @@ the tensors' device (the GPU unless the caller asks for the CPU):
   them every region lookup and sample count — are equal to the
   reference's, on the CPU and the GPU alike.
 
-* **Chunk step** — time generation, region lookup (``searchsorted(side=
-  "right")`` semantics through the grid accelerator), trace-sensor
+* **Chunk step** — time generation, region lookup for every worker
+  (``searchsorted(side="right")`` semantics through the grid
+  accelerator; each step one torch operation over the [W, c] worker
+  axis, so launches per chunk do not grow with W), trace-sensor
   emulation as pure functions of the energy integral (RAPL differencing
   with a one-scalar prev-sample carry, INA231 window semantics), and the
   ``sample_attr`` fold into the ``(counts, Σpow, Σpow²)`` carry
@@ -46,33 +48,49 @@ own integral, sharing the worker's interval lookup, and the carry is a
 see :func:`num_channels`). Scalar timelines keep the flat ``[W, ·]``
 layout and 1-D statistics.
 
-The multi-worker combination pipeline (``run_combo_pipeline``) is not
-ported yet.
+* :func:`run_combo_pipeline` — multi-worker (§4.4) combination
+  attribution: each sample's worker-region row is packed into int64 key
+  words and found in a device-resident, lexicographically sorted
+  combination table; chunks whose rows all hit fold through the same
+  ``sample_attr`` kernel (ids = interner ids). A chunk holding an unseen
+  combination raises a miss flag, read once per chunk; only then does
+  the host replay that chunk, intern its rows
+  (:class:`~repro_torch.core.streaming.CombinationInterner`), rebuild
+  the table and fold the chunk through the kernel.
+  :func:`reference_combo_pipeline` is its numpy oracle.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.convert import resolve_device
 from repro_torch.core import threefry
+from repro_torch.core.faults import SketchConfigError
 from repro_torch.core.sensors import (DEFAULT_IDLE_POWER, SensorSpec,
                                       _TraceSensorBase, idle_channel)
-from repro_torch.core.streaming import channels_for
+from repro_torch.core.sketch import other_row
+from repro_torch.core.streaming import (CombinationInterner,
+                                        StreamingCombinationAggregator,
+                                        channels_for)
 from repro_torch.core.timeline import Timeline
-from repro_torch.kernels.sample_attr.ops import make_carry_update
+from repro_torch.kernels.sample_attr.ops import (make_carry_update,
+                                                 sample_attr_fold)
 
 __all__ = [
     "DeviceTimeline", "PipelineResult", "chunk_sample_times",
     "num_chunks", "num_channels", "run_region_pipeline",
-    "reference_region_pipeline",
+    "run_combo_pipeline", "reference_region_pipeline",
+    "reference_combo_pipeline",
 ]
 
 DEFAULT_CHUNK = 65536
+_TABLE_MIN = 64
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +250,15 @@ def num_channels(num_domains: int) -> int:
     return channels_for(num_domains)
 
 
+def _zero_carry(rows: int, n_chan: int, device):
+    """A zero (counts [rows], Σpow, Σpow²) carry: statistics [rows] for
+    one channel, [rows, n_chan] for more."""
+    stat = (rows,) if n_chan == 1 else (rows, n_chan)
+    return (torch.zeros(rows, dtype=torch.int64, device=device),
+            torch.zeros(stat, dtype=torch.float64, device=device),
+            torch.zeros(stat, dtype=torch.float64, device=device))
+
+
 def _result_from_channels(counts, chan_psum, chan_psumsq, n, t_exec,
                           domains) -> PipelineResult:
     """Split a channel carry into (rail, scalar-total) statistics; the
@@ -338,50 +365,74 @@ def num_chunks(t_end: float, period: float, chunk_size: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _count_le(ends_w, grid_w, cell_w, t, k_max: int):
-    """``#(ends ≤ t)`` per sample (int64) — ``searchsorted(side="right")``,
-    but through the precomputed grid: locate the cell (with
-    exact-comparison guards against division rounding), start from its
-    prefix count, and add at most ``k_max`` consecutive compares, all in
-    one gather. All comparisons are exact, so this is bit-equal to the
-    numpy reference's searchsorted. ``k_max = 0`` means the durations
-    were too heavy-tailed for a bounded window — use the binary search."""
+def _count_le(ends, grid, cell, t, k_max: int):
+    """``#(ends ≤ t)`` per worker and sample, [W, n] int64 — ``ends``
+    [W, M], ``grid`` [W, G+2] and ``cell`` [W] of every worker against
+    the times ``t`` [n] they share. ``searchsorted(side="right")``, but
+    through the precomputed grid: locate the cell (with exact-comparison
+    guards against division rounding), start from its prefix count, and
+    add at most ``k_max`` consecutive compares, all in one gather. All
+    comparisons are exact, so this is bit-equal to the numpy reference's
+    searchsorted. ``k_max = 0`` means the durations were too heavy-tailed
+    for a bounded window — use the binary search. Every step is one
+    torch operation over all workers, so launches do not grow with W."""
+    W, M = ends.shape
     if k_max == 0:
-        return torch.searchsorted(ends_w, t, right=True)
-    G = grid_w.shape[0] - 2
-    M = ends_w.shape[0]
-    g = torch.floor(t / cell_w).to(torch.int64)
-    g = g - (g.to(torch.float64) * cell_w > t).to(torch.int64)
-    g = g + ((g + 1).to(torch.float64) * cell_w <= t).to(torch.int64)
-    lo = grid_w[g.clamp(0, G)].to(torch.int64)
-    pos = lo[:, None] + torch.arange(k_max, device=t.device)
-    hit = (pos < M) & (ends_w[pos.clamp(max=M - 1)] <= t[:, None])
-    return lo + hit.sum(dim=1)
+        return torch.searchsorted(ends, t.expand(W, -1).contiguous(),
+                                  right=True)
+    G = grid.shape[1] - 2
+    cw = cell[:, None]
+    g = torch.floor(t / cw).to(torch.int64)
+    g = g - (g.to(torch.float64) * cw > t).to(torch.int64)
+    g = g + ((g + 1).to(torch.float64) * cw <= t).to(torch.int64)
+    lo = torch.gather(grid, 1, g.clamp(0, G)).to(torch.int64)
+    pos = lo[:, :, None] + torch.arange(k_max, device=t.device)
+    e = torch.gather(ends, 1, pos.clamp(max=M - 1).reshape(W, -1))
+    hit = (pos < M) & (e.reshape(pos.shape) <= t[:, None])
+    return lo + hit.sum(dim=2)
 
 
-def _interval(cnt, m_w):
-    """Interval index ``clip(cnt, 0, m_w - 1)`` (``m_w`` a 0-d tensor)."""
-    return torch.minimum(cnt.clamp(min=0), (m_w - 1).to(torch.int64))
+def _interval(cnt, m_true):
+    """Interval index ``clip(cnt, 0, m - 1)`` per worker (``cnt`` [W, n],
+    ``m_true`` [W])."""
+    return torch.minimum(cnt.clamp(min=0),
+                         (m_true - 1).to(torch.int64)[:, None])
 
 
-def _energy_at_cnt(bounds_w, eint_w, powers_w, m_w, x, cnt):
+def _take(a, idx):
+    """``a[w, ..., idx[w, i]]``: a per-worker gather along the interval
+    axis of ``a`` [W, M] or [W, D, M] (``idx`` [W, n]) → [W, n] or
+    [W, D, n]; the rails of a worker share its indices."""
+    if a.ndim == 2:
+        return torch.gather(a, 1, idx)
+    return torch.gather(a, 2, idx[:, None, :].expand(-1, a.shape[1], -1))
+
+
+def _energy_at_cnt(bounds, eint, powers, m_true, x, cnt):
     """Exact E(x) for piecewise-constant power (device twin of
-    ``sensors._TraceSensorBase._energy_at``) given ``cnt = #(ends ≤ x)``;
-    ``bounds = [0, ends...]`` makes the bounds index ``clip(cnt)``.
-    Multi-rail ``eint_w``/``powers_w`` [D, ·] give [D, n]."""
-    idx = _interval(cnt, m_w)
-    return eint_w[..., idx] + (x - bounds_w[idx]) * powers_w[..., idx]
+    ``sensors._TraceSensorBase._energy_at``) given ``cnt = #(ends ≤ x)``
+    [W, n]; ``bounds = [0, ends...]`` makes the bounds index
+    ``clip(cnt)``. Scalar substrates give [W, n], multi-rail ones
+    [W, D, n]."""
+    idx = _interval(cnt, m_true)
+    dx = x - torch.gather(bounds, 1, idx)
+    if eint.ndim == 3:
+        dx = dx[:, None, :]
+    return _take(eint, idx) + dx * _take(powers, idx)
 
 
 def _sensor_powers(spec: SensorSpec, arrs, t, cnt, valid, prev,
                    k_max: int):
-    """One worker's sensor readings + updated RAPL prev-sample carry.
+    """Every worker's sensor readings + updated RAPL prev-sample carry.
 
-    ``arrs`` is the worker's row of :meth:`DeviceTimeline.arrays`. Scalar
-    substrates return [c]; multi-rail substrates [D, c] — every rail
-    applies the same instrument semantics to its own energy integral,
-    sharing the interval count ``cnt`` (rails share the clock). ``prev``
-    is a 0-d f64 tensor (< 0: no sample taken yet).
+    ``arrs`` is :meth:`DeviceTimeline.arrays`; ``t`` [c] is the clock
+    all workers share and ``cnt`` [W, c] its interval counts. Scalar
+    substrates return [W, c]; multi-rail substrates [W, D, c] — every
+    rail applies the same instrument semantics to its own energy
+    integral, sharing its worker's interval count (rails share the
+    clock). ``prev`` is one 0-d f64 tensor for every worker and rail
+    (< 0: no sample taken yet): they share the sample clock, so the RAPL
+    differencing chain has one prev time whatever W or D.
     """
     ends, bounds, eint, powers, rids, m_true, grid, cell = arrs
 
@@ -391,7 +442,7 @@ def _sensor_powers(spec: SensorSpec, arrs, t, cnt, valid, prev,
         return _energy_at_cnt(bounds, eint, powers, m_true, x, cnt_x)
 
     if spec.kind == "instant":
-        return powers[..., _interval(cnt, m_true)], prev
+        return _take(powers, _interval(cnt, m_true)), prev
     if spec.kind == "rapl":
         up = spec.update_period
         tq = torch.floor(t / up + 1e-6) * up
@@ -416,26 +467,30 @@ def _sensor_powers(spec: SensorSpec, arrs, t, cnt, valid, prev,
 
 def _chunk_samples(dtl: DeviceTimeline, spec: SensorSpec, root, u0: float,
                    k: int, c: int, period: float, jitter: float, prev):
-    """One chunk of the single worker: times → region ids [c] → channel
+    """One chunk of every worker: times → region ids [W, c] → channel
     powers.
 
-    Scalar substrates produce the power [c]; multi-rail substrates the
-    [C, c] channel matrix — the rails plus the total (see
-    :func:`num_channels`). Lanes past the horizon are flagged invalid and
-    their times clipped to ``t_end`` so the sensor math stays finite
-    (they contribute nothing downstream).
+    Scalar substrates produce the worker-summed power [c]; multi-rail
+    substrates the [C, c] channel matrix — the worker-summed rails plus
+    the total (see :func:`num_channels`). At W = 1 the worker axis is
+    dropped by a view, not summed, so the single-worker chunk is the same
+    arithmetic and the same launches as before the worker axis existed.
+    Lanes past the horizon are flagged invalid and their times clipped to
+    ``t_end`` so the sensor math stays finite (they contribute nothing
+    downstream).
     """
-    arrs = tuple(a[0] for a in dtl.arrays())
+    arrs = dtl.arrays()
     ends, bounds, eint, powers, rids, m_true, grid, cell = arrs
     t_raw = _raw_chunk_times(root, u0, k, c, period, jitter, dtl.device)
     valid = t_raw < dtl.t_end
     t = torch.clamp_max(t_raw, dtl.t_end)
     cnt = _count_le(ends, grid, cell, t, dtl.grid_k)
-    rid = rids[_interval(cnt, m_true)]
-    chan, prev = _sensor_powers(spec, arrs, t, cnt, valid, prev, dtl.grid_k)
+    rid_mat = torch.gather(rids, 1, _interval(cnt, m_true))
+    pows, prev = _sensor_powers(spec, arrs, t, cnt, valid, prev, dtl.grid_k)
+    chan = pows[0] if pows.shape[0] == 1 else pows.sum(dim=0)
     if chan.ndim == 2:
         chan = torch.cat([chan, chan.sum(dim=0, keepdim=True)])
-    return rid, chan, valid, prev
+    return rid_mat, chan, valid, prev
 
 
 def _check_sampling_args(spec: SensorSpec, period: float, jitter: float):
@@ -494,29 +549,25 @@ def run_region_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
     _check_spec_domains(spec, dtl)
     if dtl.num_workers != 1:
         raise ValueError(f"region pipeline is single-worker; got "
-                         f"W={dtl.num_workers} (the combination pipeline "
-                         f"is not ported yet)")
+                         f"W={dtl.num_workers} (use run_combo_pipeline)")
     frac = min(overhead_per_sample / period, 1.0) \
         if overhead_per_sample > 0.0 else 0.0
     dev = dtl.device
     R = dtl.num_regions
     update = make_carry_update(R)
-    n_chan = num_channels(spec.num_domains)
     idle_ch = idle_channel(spec.domains)
-    stat_shape = (R,) if n_chan == 1 else (R, n_chan)
-    counts = torch.zeros(R, dtype=torch.int64, device=dev)
-    psum = torch.zeros(stat_shape, dtype=torch.float64, device=dev)
-    psumsq = torch.zeros(stat_shape, dtype=torch.float64, device=dev)
+    counts, psum, psumsq = _zero_carry(R, num_channels(spec.num_domains),
+                                       dev)
     n = torch.zeros((), dtype=torch.int64, device=dev)
     prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
     root = threefry.PRNGKey(seed)
     u0 = _phase(root, period)
     for k in range(num_chunks(dtl.t_end, period, chunk_size)):
-        rid, chan, valid, prev = _chunk_samples(
+        rid_mat, chan, valid, prev = _chunk_samples(
             dtl, spec, root, u0, k, chunk_size, period, jitter, prev)
         if frac > 0.0:
             chan = _blend_idle(chan, frac, idle_power, idle_ch)
-        update(counts, psum, psumsq, rid, chan, valid)
+        update(counts, psum, psumsq, rid_mat[0], chan, valid)
         n += valid.sum()
     n = int(n)
     if n == 0:
@@ -525,6 +576,289 @@ def run_region_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
                                  psumsq.cpu().numpy(), n,
                                  dtl.t_end + n * overhead_per_sample,
                                  dtl.domains)
+
+
+# ---------------------------------------------------------------------------
+# Multi-worker combination pipeline: device table + host interner fallback.
+# ---------------------------------------------------------------------------
+
+
+def _word_weights(words: int, device):
+    """``2^(words-1-j)`` for word j: the weights of :func:`_lex_less`."""
+    return torch.tensor([1 << (words - 1 - j) for j in range(words)],
+                        dtype=torch.int64, device=device)
+
+
+def _lex_less(a, b, weight):
+    """Row-wise lexicographic ``a < b`` for [n, words] int64 key matrices
+    (keys below 2^62, the table padding int64-max, so ``a - b`` cannot
+    overflow). One pass whatever the word count: the sign of each word's
+    difference, weighted by :func:`_word_weights`, sums to a number whose
+    sign is that of the first word that differs."""
+    return (torch.sign(a - b) * weight).sum(dim=1) < 0
+
+
+def _lex_search(table, n_rows: int, rows):
+    """Lower-bound binary search of ``rows`` [c, words] in the lex-sorted
+    ``table`` [cap, words] (first ``n_rows`` rows valid): ``bit_length(cap)``
+    steps, each a handful of torch operations over all lanes. Returns
+    (position [c] int64, found [c] bool)."""
+    cap, words = table.shape
+    c = rows.shape[0]
+    weight = _word_weights(words, rows.device)
+    lo = torch.zeros(c, dtype=torch.int64, device=rows.device)
+    hi = torch.full((c,), n_rows, dtype=torch.int64, device=rows.device)
+    for _ in range(int(cap).bit_length()):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        # A full table (n_rows == cap) leaves finished lanes at mid == cap.
+        less = active & _lex_less(table[mid.clamp(max=cap - 1)], rows,
+                                  weight)
+        lo = torch.where(less, mid + 1, lo)
+        # A finished lane has lo == hi == mid, so it keeps its hi.
+        hi = torch.where(less, hi, mid)
+    pos = lo.clamp(0, cap - 1)
+    found = (lo < n_rows) & (table[pos] == rows).all(dim=1)
+    return pos, found
+
+
+def _pack_spec(num_regions: int, width: int) -> tuple[int, int, int]:
+    """(bits per region id, ids per word, words per row) for packing
+    worker-region rows into int64 key words: always fewer columns than
+    the raw [W] row, one scalar word whenever ``W·bits ≤ 62`` (≤ 62 so a
+    real key never collides with the int64-max table padding)."""
+    bits = max((num_regions - 1).bit_length(), 1)
+    per = max(62 // bits, 1)
+    n_words = -(-width // per)
+    return bits, per, n_words
+
+
+def _pack_rows_np(mat: np.ndarray, pack: tuple[int, int, int]) -> np.ndarray:
+    """[n, W] host region-id rows → [n, n_words] int64 key words."""
+    bits, per, n_words = pack
+    w = mat.shape[1]
+    out = np.zeros((len(mat), n_words), np.int64)
+    for j in range(n_words):
+        cols = mat[:, j * per:min((j + 1) * per, w)].astype(np.int64)
+        shifts = np.arange(cols.shape[1], dtype=np.int64) * bits
+        out[:, j] = (cols << shifts[None, :]).sum(axis=1)
+    return out
+
+
+def _pack_rows(rid_mat, pack: tuple[int, int, int]):
+    """[W, c] device region-id matrix → [c, n_words] int64 key words, the
+    words of :func:`_pack_rows_np`: the worker axis is zero-padded to
+    ``n_words·per`` (a zero id shifted adds nothing) and every word is
+    packed in the same few operations."""
+    bits, per, n_words = pack
+    w, c = rid_mat.shape
+    per = min(per, w)
+    cols = rid_mat.to(torch.int64)
+    if n_words * per > w:
+        cols = torch.cat([cols, cols.new_zeros(n_words * per - w, c)])
+    shifts = torch.arange(0, per * bits, bits, dtype=torch.int64,
+                          device=rid_mat.device)
+    packed = (cols.reshape(n_words, per, c) << shifts[:, None]).sum(dim=1)
+    return packed.T.contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class _ComboTable:
+    """The device-side combination table: lex-sorted packed keys
+    ``keys`` [cap, n_words] int64 (int64-max padded), sorted position →
+    interner id ``ids`` [cap] int32 (the ids the fold takes), the valid
+    row count, and the packing of its keys."""
+
+    keys: torch.Tensor
+    ids: torch.Tensor
+    n_rows: int
+    pack: tuple[int, int, int]
+
+    def lookup(self, rid_mat):
+        """Interner ids [c] int32 and hit flags [c] of the worker-region
+        rows of ``rid_mat`` [W, c]: one ``searchsorted`` for one-word
+        keys, :func:`_lex_search` for more."""
+        keys = _pack_rows(rid_mat, self.pack)
+        cap = self.keys.shape[0]
+        if self.pack[2] == 1:
+            flat, col = keys[:, 0], self.keys[:, 0]
+            pos = torch.searchsorted(col, flat).clamp_(max=cap - 1)
+            found = (pos < self.n_rows) & (col[pos] == flat)
+        else:
+            pos, found = _lex_search(self.keys, self.n_rows, keys)
+        return self.ids[pos], found
+
+
+def _build_table(interner: CombinationInterner, cap: int,
+                 pack: tuple[int, int, int], device) -> _ComboTable:
+    """The table of ``interner``'s rows at capacity ``cap`` on
+    ``device``."""
+    mat = interner.combo_matrix()
+    k = len(mat)
+    ids = np.zeros(cap, np.int32)
+    table = np.full((cap, pack[2]), np.iinfo(np.int64).max, np.int64)
+    if k:
+        keys = _pack_rows_np(mat, pack)
+        order = np.lexsort(keys.T[::-1])
+        table[:k] = keys[order]
+        ids[:k] = order
+    return _ComboTable(torch.from_numpy(table).to(device),
+                       torch.from_numpy(ids).to(device), k, pack)
+
+
+def _table_cap(rows: int) -> int:
+    """Table and carry capacity for ``rows`` combinations: a power of
+    two, at least ``_TABLE_MIN``."""
+    return max(_TABLE_MIN, 1 << (rows - 1).bit_length())
+
+
+def _admit_or_fold(rows: np.ndarray, interner: CombinationInterner,
+                   other_by_region: dict, max_combinations: int,
+                   width: int) -> tuple[np.ndarray, int]:
+    """Bounded tier of the miss path: intern new rows while fewer than
+    ``max_combinations`` identified rows exist; later arrivals fold into
+    their region's ``other`` sentinel row, so the table and carry stop
+    growing. Folded keys stay out of the device table — their traffic
+    keeps re-missing — but each miss lands here and folds exactly once
+    per sample, so nothing is lost. Returns (ids [n], samples folded)."""
+    uniq, inverse = np.unique(rows, axis=0, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    uids = np.empty(len(uniq), np.int64)
+    folded = 0
+    for i in range(len(uniq)):
+        key = tuple(int(v) for v in uniq[i])
+        cid = interner.find_row(uniq[i])
+        if cid is None:
+            if len(interner) - len(other_by_region) < max_combinations:
+                cid = interner.intern(key)
+            else:
+                region = key[0]
+                cid = other_by_region.get(region)
+                if cid is None:
+                    cid = interner.intern(other_row(region, width))
+                    other_by_region[region] = cid
+                folded += int(np.sum(inverse == i))
+        uids[i] = cid
+    return uids[inverse], folded
+
+
+def run_combo_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
+                       period: float, jitter: float = 200e-6, seed: int = 0,
+                       chunk_size: int = DEFAULT_CHUNK,
+                       max_combinations: int | None = None,
+                       stats: dict | None = None
+                       ) -> tuple[StreamingCombinationAggregator, int]:
+    """Multi-worker (§4.4) combination attribution on ``dtl``'s device.
+
+    Each chunk's [W, c] worker-region rows are packed into int64 key
+    words and looked up in the device-side lex-sorted combination table;
+    every sample of a chunk whose rows all hit folds through the
+    ``sample_attr`` kernel (ids = the rows' interner ids) into the
+    device carry. One scalar miss flag is read back per chunk. A chunk
+    that surfaces a new combination folds nothing on that pass: the host
+    replays it (counter-based times make the replay exact, from the
+    RAPL prev sample as it stood before the chunk), interns its rows
+    (the id space is dynamic and first-appearance-ordered —
+    host-authoritative), grows the carry to the next power of two,
+    rebuilds and re-uploads the table, and folds the chunk through the
+    same kernel. With a stable combination set that happens
+    O(distinct combinations / chunk) times in all.
+
+    ``max_combinations`` bounds the attribution state (heavy-hitters
+    tier, :mod:`repro_torch.core.sketch`): the miss path admits new
+    combinations while fewer than ``max_combinations`` identified rows
+    exist and folds later arrivals into their region's ``other`` row;
+    per-region sample counts stay exact, tail identity coarsens. With
+    ``max_combinations >= distinct`` the result is the unbounded run's.
+
+    Returns ``(aggregator, n_samples)``; ``stats``, if given, records
+    ``chunks``, ``miss_chunks`` and ``miss_seconds`` (host wall time in
+    the miss path, which queues the miss fold but does not wait for it)
+    plus, in bounded mode, ``tail_folds``.
+    :func:`reference_combo_pipeline` is the numpy mirror.
+    """
+    _check_sampling_args(spec, period, jitter)
+    _check_spec_domains(spec, dtl)
+    W = dtl.num_workers
+    if max_combinations is not None:
+        if max_combinations < 1:
+            raise ValueError(f"max_combinations must be >= 1; "
+                             f"got {max_combinations}")
+        if W < 2:
+            raise SketchConfigError(
+                "bounded combination attribution needs >= 2 workers (the "
+                "region axis plus at least one folded axis); at W=1 use "
+                "the region pipeline")
+    dev = dtl.device
+    n_chan = num_channels(dtl.num_domains)
+    pack = _pack_spec(dtl.num_regions, W)
+    interner = CombinationInterner()
+    other_by_region: dict[int, int] = {}
+    miss_chunks = tail_folds = 0
+    miss_seconds = 0.0
+    cap = _TABLE_MIN
+    table = _build_table(interner, cap, pack, dev)
+    carry = _zero_carry(cap, n_chan, dev)
+    n = torch.zeros((), dtype=torch.int64, device=dev)
+    prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
+    root = threefry.PRNGKey(seed)
+    u0 = _phase(root, period)
+    k_chunks = num_chunks(dtl.t_end, period, chunk_size)
+    for k in range(k_chunks):
+        prev_in = prev      # never written in place: the replay's start
+        rid_mat, chan, valid, prev = _chunk_samples(
+            dtl, spec, root, u0, k, chunk_size, period, jitter, prev)
+        ids, found = table.lookup(rid_mat)
+        # Any in-horizon row missing from the table aborts the device
+        # fold for the WHOLE chunk, so no sample is ever half-counted.
+        any_miss = (valid & ~found).any()
+        fold = valid & found & ~any_miss
+        sample_attr_fold(*carry, ids, chan, fold)
+        n += fold.sum()
+        if not bool(any_miss):
+            continue
+        miss_chunks += 1
+        t_miss = time.perf_counter()
+        rid_mat, chan, valid, _ = _chunk_samples(
+            dtl, spec, root, u0, k, chunk_size, period, jitter, prev_in)
+        valid_h = valid.cpu().numpy()
+        rows = rid_mat.cpu().numpy().T[valid_h].astype(np.int64)
+        if max_combinations is None:
+            cids = interner.encode(rows)
+        else:
+            cids, folded = _admit_or_fold(rows, interner, other_by_region,
+                                          max_combinations, W)
+            tail_folds += folded
+        if len(interner) > cap:
+            new_cap = _table_cap(len(interner))
+            pad = _zero_carry(new_cap - cap, n_chan, dev)
+            carry = tuple(torch.cat([a, b]) for a, b in zip(carry, pad))
+            cap = new_cap
+        table = _build_table(interner, cap, pack, dev)
+        idx = np.full(chunk_size, cap, np.int32)
+        idx[valid_h] = cids
+        sample_attr_fold(*carry, torch.from_numpy(idx).to(dev), chan, valid)
+        n += valid.sum()
+        miss_seconds += time.perf_counter() - t_miss
+    n = int(n)
+    if stats is not None:
+        stats["chunks"] = k_chunks
+        stats["miss_chunks"] = miss_chunks
+        stats["miss_seconds"] = miss_seconds
+        if max_combinations is not None:
+            stats["tail_folds"] = tail_folds
+    if n == 0:
+        raise ValueError("run too short for sampling period")
+    k_combos = len(interner)
+    counts, psum, psumsq = (a[:k_combos].cpu().numpy() for a in carry)
+    agg = StreamingCombinationAggregator.from_table(
+        interner.combo_matrix(), counts, psum, psumsq,
+        domains=dtl.domains, k=max_combinations)
+    if max_combinations is not None:
+        # from_table re-counts nothing; carry the pipeline's fold
+        # provenance so tail_info() discloses what happened on device.
+        agg.tail_folds += tail_folds
+    return agg, n
 
 
 # ---------------------------------------------------------------------------
@@ -632,3 +966,48 @@ def reference_region_pipeline(tl: Timeline, spec: SensorSpec, *,
     return _result_from_channels(counts, psum, psumsq, n,
                                  t_end + n * overhead_per_sample,
                                  tl.domain_names)
+
+
+def reference_combo_pipeline(timelines: list[Timeline], spec_fn, *,
+                             period: float, jitter: float = 200e-6,
+                             seed: int = 0,
+                             chunk_size: int = DEFAULT_CHUNK
+                             ) -> tuple[StreamingCombinationAggregator, int]:
+    """Numpy mirror of :func:`run_combo_pipeline` (the oracle).
+
+    ``spec_fn`` maps a timeline to its :class:`SensorSpec` (matching the
+    device path's one-spec-for-all, pass ``lambda tl: spec``). Chunks are
+    interned through a host :class:`CombinationInterner` exactly as the
+    device path's miss fallback does, so combination ids line up 1:1.
+    """
+    specs = [spec_fn(tl) for tl in timelines]
+    for s, tl in zip(specs, timelines):
+        _check_sampling_args(s, period, jitter)
+        if s.num_domains != tl.num_domains:
+            raise ValueError("sensor bank / timeline rail count mismatch")
+    domains = timelines[0].domain_names
+    if any(tl.domain_names != domains for tl in timelines):
+        raise ValueError("workers must share a power-rail domain axis")
+    readers = [_ref_reader(s, tl) for s, tl in zip(specs, timelines)]
+    t_end = min(tl.t_exec for tl in timelines)
+    agg = StreamingCombinationAggregator(domains=domains)
+    prev = -1.0
+    n = 0
+    for k in range(num_chunks(t_end, period, chunk_size)):
+        t_raw = _ref_times(seed, k, period, jitter, chunk_size)
+        valid = t_raw < t_end
+        t = np.minimum(t_raw, t_end)
+        rid_mat = np.stack([tl.region_at(t) for tl in timelines], axis=1)
+        rails = np.zeros((len(t), len(domains)), np.float64)
+        new_prev = prev
+        for reader in readers:
+            p, new_prev = reader(t, valid, prev)
+            rails += p
+        prev = new_prev
+        pv = rails[valid]
+        agg.update(rid_mat[valid].astype(np.int64),
+                   pv[:, 0] if len(domains) == 1 else pv)
+        n += int(valid.sum())
+    if n == 0:
+        raise ValueError("run too short for sampling period")
+    return agg, n

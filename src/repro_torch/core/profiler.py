@@ -6,37 +6,107 @@ Usage, timeline mode (timelines synthesized from dry-run costs):
     est = prof.profile_timeline_streaming(timeline, sensor="rapl")
     print(prof.report(est).table())
 
+Usage, host mode (a real control thread on this machine):
+
+    prof = EnergyProfiler(period=2e-3)
+    with prof.host_session() as session:
+        ... run code using regions.region(...) ...
+    est = session.estimates()
+
 ``device`` names where the device pipeline runs: ``"cuda"`` (the
 default) or ``"cpu"`` (the plain PyTorch path the CPU tests use). Asking
-for the GPU where torch sees none raises. Host-mode sessions
-(``host_session``) are not ported yet.
+for the GPU where torch sees none raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 
 from repro_torch.convert import resolve_device
+from repro_torch.core import regions as regions_mod
 from repro_torch.core.attribution import AttributionReport
 from repro_torch.core.estimator import (AggregateFn, EstimateSet,
                                         estimate_combinations,
                                         estimate_regions)
-from repro_torch.core.sampler import (iter_multiworker_chunks,
+from repro_torch.core.sampler import (HostSampler, RegionMarker,
+                                      SampleStream, iter_multiworker_chunks,
                                       iter_sample_chunks, sample_timeline,
                                       sample_timeline_multiworker)
 from repro_torch.core.sensors import (Ina231TraceSensor, InstantTraceSensor,
-                                      RaplTraceSensor)
+                                      RaplTraceSensor, available_host_sensor)
 from repro_torch.core.streaming import (StreamingAggregator,
                                         StreamingCombinationAggregator)
 from repro_torch.core.timeline import Timeline
 
-__all__ = ["EnergyProfiler"]
+__all__ = ["EnergyProfiler", "HostSession"]
 
 _SENSORS = {
     "rapl": RaplTraceSensor,
     "ina231": Ina231TraceSensor,
     "instant": InstantTraceSensor,
 }
+
+
+class HostSession:
+    """A live host-mode profiling pass.
+
+    ``sensor`` defaults to the best scalar sensor the environment
+    permits; passing a :class:`~repro_torch.core.sensors.HostSensorBank`
+    makes the session multi-rail — the sampler drains [n, D] power
+    matrices and :meth:`estimates` carries per-domain columns, exactly
+    like the timeline paths. Samples attribute host time: on the GPU a
+    region is current while its work is being queued, not while it runs.
+    """
+
+    def __init__(self, profiler: "EnergyProfiler", jit_marking: bool,
+                 sensor=None):
+        self._prof = profiler
+        self.marker = RegionMarker()
+        sensor = available_host_sensor() if sensor is None else sensor
+        min_period = (sensor.effective_min_period()
+                      if hasattr(sensor, "effective_min_period")
+                      else getattr(sensor, "min_period", 0.0))
+        if profiler.period < min_period:
+            raise ValueError(f"sampling period {profiler.period} below the "
+                             f"sensor bank's floor {min_period}")
+        self.sampler = HostSampler(
+            self.marker, sensor,
+            period=profiler.period, jitter=profiler.jitter,
+            seed=profiler.seed)
+        self._ctx = None
+        self._jit_marking = jit_marking
+
+    def __enter__(self) -> "HostSession":
+        self._ctx = contextlib.ExitStack()
+        self._ctx.enter_context(
+            regions_mod.profiling_session(self.marker,
+                                          jit_marking=self._jit_marking))
+        self._ctx.enter_context(self.sampler)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        assert self._ctx is not None
+        self._ctx.close()
+
+    def stream(self) -> SampleStream:
+        return self.sampler.stream()
+
+    def estimates(self, alpha: float = 0.05) -> EstimateSet:
+        s = self.stream()
+        names = regions_mod.registry.names
+        if s.powers.ndim == 2:
+            # Banked sensor: aggregate the [n, D] matrix so the estimate
+            # set carries per-rail columns (domain_table/domain_csv).
+            hi = int(s.region_ids.max()) + 1 if len(s.region_ids) else 0
+            agg = StreamingAggregator(max(len(names), hi, 1),
+                                      domains=self.sampler.domains)
+            if len(s.region_ids):
+                agg.update(s.region_ids, s.powers)
+            return agg.estimates(s.t_exec, names, alpha=alpha)
+        return estimate_regions(s.region_ids, s.powers, s.t_exec,
+                                names, alpha=alpha)
 
 
 class EnergyProfiler:
@@ -158,32 +228,60 @@ class EnergyProfiler:
                                       sensor: str = "rapl",
                                       chunk_size: int = 65536,
                                       aggregate_fn: AggregateFn | None = None,
+                                      exchange=None,
                                       seed: int | None = None,
                                       pipeline: str = "auto"):
         """§4.4 combination attribution without materializing the stream.
 
         Chunked multi-worker sampling feeds a
         StreamingCombinationAggregator (incremental combination
-        interning). Only the host pipeline is ported: the device
-        combination pipeline (``run_combo_pipeline``) is the next slice,
-        so a call that resolves to the device pipeline raises instead of
-        quietly taking the host path. Cross-host ``exchange`` is not
-        ported yet either.
+        interning), so fleet-scale combination spaces (10⁴–10⁵) stay
+        bounded by O(chunk + distinct combinations). With
+        ``pipeline="device"`` (the ``auto`` default) the whole chunk loop
+        is the device pipeline on ``self.device``
+        (:func:`repro_torch.core.device_pipeline.run_combo_pipeline`):
+        every worker of a chunk is looked up in one batched step, and
+        chunks whose combinations are already in the device-resident key
+        table fold through the ``sample_attr`` kernel with no host
+        transfer beyond a one-scalar miss flag.
+
+        ``exchange`` (the cross-host shard exchange of the final
+        reduction) is not ported yet: any value but ``None`` raises.
         """
-        if self._resolve_pipeline(pipeline, aggregate_fn):
+        if exchange is not None:
             raise NotImplementedError(
-                "the device combination pipeline (run_combo_pipeline, "
-                "ROADMAP item A3b) is not ported yet; pass "
-                "pipeline=\"host\"")
+                "cross-host exchange (ROADMAP item A5: core/exchange.py "
+                "and checkpoint/ckpt.py) is not ported yet; pass "
+                "exchange=None")
         use_seed = self.seed if seed is None else seed
-        agg = StreamingCombinationAggregator(
-            aggregate_fn=aggregate_fn, domains=timelines[0].domain_names)
-        agg.update_stream(iter_multiworker_chunks(
-            timelines, lambda tl: _SENSORS[sensor](tl),
-            period=self.period, jitter=self.jitter,
-            seed=use_seed, chunk_size=chunk_size))
+        if self._resolve_pipeline(pipeline, aggregate_fn):
+            from repro_torch.core import device_pipeline as dp
+            dtl = dp.DeviceTimeline.from_timelines(timelines,
+                                                   device=self.device)
+            agg, _n = dp.run_combo_pipeline(
+                dtl, _SENSORS[sensor].make_spec(domains=dtl.domains),
+                period=self.period, jitter=self.jitter, seed=use_seed,
+                chunk_size=chunk_size)
+        else:
+            agg = StreamingCombinationAggregator(
+                aggregate_fn=aggregate_fn,
+                domains=timelines[0].domain_names)
+            agg.update_stream(iter_multiworker_chunks(
+                timelines, lambda tl: _SENSORS[sensor](tl),
+                period=self.period, jitter=self.jitter,
+                seed=use_seed, chunk_size=chunk_size))
         t_end = min(tl.t_exec for tl in timelines)
         return agg.estimates(t_end, timelines[0].names, alpha=self.alpha)
+
+    # -- host (this machine) mode --------------------------------------------
+    def host_session(self, *, jit_marking: bool = False,
+                     sensor=None) -> HostSession:
+        """A live session on this machine. ``sensor`` accepts any scalar
+        host sensor or a :class:`~repro_torch.core.sensors.HostSensorBank`
+        (per-rail host profiling, with the bank's failover semantics).
+        ``jit_marking`` hands region marking to
+        :func:`~repro_torch.core.regions.mark_in_jit` (validation runs)."""
+        return HostSession(self, jit_marking, sensor=sensor)
 
     # -- convenience -----------------------------------------------------------
     def report(self, est: EstimateSet) -> AttributionReport:

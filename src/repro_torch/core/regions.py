@@ -18,9 +18,12 @@ This does three things:
 
 When no session is active the context manager is a plain
 ``record_function``, which costs nothing measurable unless a profiler is
-recording. The reference's in-graph marker (``mark_in_jit``) is not
-ported: PyTorch runs eagerly, and what replaces it under a CUDA graph is
-still open.
+recording.
+
+:func:`mark_in_jit` is the counterpart of the reference's in-graph
+marker store. The port runs eagerly, so it stores the marker at the
+point where the host issues the call: on the GPU that is when the
+following work is queued, not when it runs.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from torch.profiler import record_function
 
 from repro_torch.core.sampler import RegionMarker
 
-__all__ = ["RegionRegistry", "region", "registry", "profiling_session"]
+__all__ = ["RegionRegistry", "region", "registry", "profiling_session",
+           "mark_in_jit"]
 
 
 class RegionRegistry:
@@ -71,19 +75,40 @@ registry = RegionRegistry()
 
 # Active profiling marker (None ⇒ regions only label the trace).
 _active_marker: RegionMarker | None = None
+_in_jit_marking = False
 
 
 @contextlib.contextmanager
-def profiling_session(marker: RegionMarker) -> Iterator[None]:
+def profiling_session(marker: RegionMarker, *, jit_marking: bool = False
+                      ) -> Iterator[None]:
     """Activates host-mode marking: every :func:`region` entered inside
-    the block stores its id into ``marker``."""
-    global _active_marker
-    prev = _active_marker
-    _active_marker = marker
+    the block stores its id into ``marker``. With ``jit_marking`` the
+    stores come from :func:`mark_in_jit` calls instead, and ``region``
+    only labels the trace (validation runs only, as in the reference)."""
+    global _active_marker, _in_jit_marking
+    prev, prev_jit = _active_marker, _in_jit_marking
+    _active_marker, _in_jit_marking = marker, jit_marking
     try:
         yield
     finally:
-        _active_marker = prev
+        _active_marker, _in_jit_marking = prev, prev_jit
+
+
+def mark_in_jit(name: str, dep=None):
+    """Store ``name``'s region id into the active marker (sessions with
+    ``jit_marking=True`` only; a no-op otherwise). Returns ``dep``
+    unchanged so callers can thread it for ordering, as in the reference.
+
+    It marks host issue order: PyTorch runs eagerly, so the store happens
+    when this line runs, which on the GPU is when the work after it is
+    queued, not when that work executes. Meant for host-mode validation
+    runs, as the reference's in-graph store is; there is no device-side
+    callback behind it.
+    """
+    rid = registry.intern(name)
+    if _active_marker is not None and _in_jit_marking:
+        _active_marker.set(rid)
+    return dep
 
 
 _region_stack = threading.local()
@@ -99,7 +124,7 @@ def region(name: str) -> Iterator[int]:
     basic block.
     """
     rid = registry.intern(name)
-    m = _active_marker
+    m = _active_marker if not _in_jit_marking else None
     if m is not None:
         stack = getattr(_region_stack, "s", None)
         if stack is None:

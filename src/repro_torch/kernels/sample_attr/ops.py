@@ -13,6 +13,9 @@ launches, so a run can show that its path went through the kernel.
 * :func:`sample_attr` and :func:`as_aggregate_fn` — the one-shot form and
   its adapter to the estimator's ``AggregateFn`` interface; both go
   through the same kernel with a fresh zero carry.
+* :func:`chunked_aggregate_fn` and :func:`sample_attr_chunk` — the host
+  chunk seam of ``StreamingAggregator``: fixed-capacity chunks staged
+  into device buffers and folded into a preallocated device carry.
 """
 
 from __future__ import annotations
@@ -26,8 +29,11 @@ import torch
 from repro_torch.convert import resolve_device
 from repro_torch.kernels.sample_attr.ref import sample_attr_fold_ref
 
-__all__ = ["as_aggregate_fn", "make_carry_update", "sample_attr",
-           "sample_attr_fold"]
+__all__ = ["as_aggregate_fn", "chunked_aggregate_fn", "make_carry_update",
+           "sample_attr", "sample_attr_chunk", "sample_attr_fold"]
+
+# The reference's default chunk capacity (16 blocks of 1024 samples).
+DEFAULT_CHUNK_CAPACITY = 16 * 1024
 
 
 # sample_attr_fold's C signature (sample_attr.cu): ids, pows, valid; c, C,
@@ -210,6 +216,82 @@ def as_aggregate_fn(device="cuda"):
         pw = torch.as_tensor(np.asarray(powers, np.float64), device=dev)
         c, s, sq = sample_attr(ids, pw, int(num_regions))
         return c.cpu().numpy(), s.cpu().numpy(), sq.cpu().numpy()
+    return agg
+
+
+def sample_attr_chunk(num_regions: int, device="cuda"):
+    """Chunk reducer over a preallocated carry: returns ``fold(ids,
+    powers)``, which adds one chunk (``ids`` int32, ``-1`` = padding;
+    ``powers`` float64) into a zeroed ``(counts, psum, psumsq)`` carry of
+    ``num_regions`` rows on ``device`` through :func:`sample_attr_fold`
+    and returns it. ``fold.carry`` is that carry; ``fold.reset()`` zeroes
+    it in place. The counterpart of the reference's compiled reducer,
+    which is cached per (block_n, block_r, num_regions): here nothing is
+    compiled per configuration, and the carry is allocated once per
+    reducer, not per chunk."""
+    dev = resolve_device(device)
+    carry = (torch.zeros(num_regions, dtype=torch.int64, device=dev),
+             torch.zeros(num_regions, dtype=torch.float64, device=dev),
+             torch.zeros(num_regions, dtype=torch.float64, device=dev))
+
+    def fold(region_ids, powers):
+        sample_attr_fold(*carry, region_ids, powers)
+        return carry
+
+    def reset():
+        for t in carry:
+            t.zero_()
+    fold.carry = carry
+    fold.reset = reset
+    return fold
+
+
+def chunked_aggregate_fn(chunk_capacity: int = DEFAULT_CHUNK_CAPACITY, *,
+                         device="cuda"):
+    """AggregateFn for ``StreamingAggregator``: fixed-capacity chunks
+    folded by the kernel on ``device``.
+
+    Each call stages its samples into two preallocated device buffers of
+    ``chunk_capacity`` lanes, a slice at a time (oversized chunks are
+    folded in capacity-sized slices; a short slice is topped up with id
+    ``-1``, which matches no region), folds every slice into one device
+    carry and reads the carry back once. The region axis is rounded up
+    to a power of two (at least 64), so a growing region space
+    (streaming combination interning) allocates O(log R) carries, not
+    one per distinct R. The reference's ``block_n``/``block_r`` tile the
+    TPU's VMEM, which the CUDA kernel does not use: they are not taken.
+    The closure owns its buffers, so one aggregate fn is not to be shared
+    across threads (each ``StreamingAggregator`` gets its own).
+    """
+    dev = resolve_device(device)
+    scratch_ids = torch.full((chunk_capacity,), -1, dtype=torch.int32,
+                             device=dev)
+    scratch_pw = torch.zeros(chunk_capacity, dtype=torch.float64,
+                             device=dev)
+    reducers: dict[int, object] = {}
+
+    def agg(region_ids, powers, num_regions):
+        num_regions = int(num_regions)
+        r_quant = max(64, 1 << (num_regions - 1).bit_length())
+        fold = reducers.get(r_quant)
+        if fold is None:
+            fold = reducers[r_quant] = sample_attr_chunk(r_quant, dev)
+        fold.reset()
+        ids = np.ascontiguousarray(region_ids, dtype=np.int32)
+        pw = np.ascontiguousarray(powers, dtype=np.float64)
+        for lo in range(0, len(ids), chunk_capacity):
+            n_c = min(chunk_capacity, len(ids) - lo)
+            # Copies and folds run in stream order, so the next slice's
+            # copy cannot overwrite the buffers before this fold read them.
+            scratch_ids[:n_c].copy_(torch.from_numpy(ids[lo:lo + n_c]))
+            scratch_pw[:n_c].copy_(torch.from_numpy(pw[lo:lo + n_c]))
+            if n_c < chunk_capacity:
+                scratch_ids[n_c:].fill_(-1)
+                scratch_pw[n_c:].zero_()
+            fold(scratch_ids, scratch_pw)
+        # A copy even on the CPU: the carry is reset by the next call.
+        return tuple(t[:num_regions].to("cpu", copy=True).numpy()
+                     for t in fold.carry)
     return agg
 
 

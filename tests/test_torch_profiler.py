@@ -156,11 +156,29 @@ def test_multiworker_host_matches_reference():
 
 
 @pytest.mark.parametrize("pipeline", ["auto", "device"])
-def test_multiworker_device_pipeline_is_not_ported_yet(pipeline):
+def test_multiworker_device_matches_reference(pipeline):
+    """The default (auto) and the explicit device pipeline both run the
+    combination pipeline and match the reference's device branch."""
+    pairs = [_pair(seed=s) for s in (0, 1, 2)]
+    kw = dict(sensor="rapl", chunk_size=512)
+    (got, got_rows) = EnergyProfiler(period=5e-3, seed=3, device="cpu") \
+        .profile_multiworker_streaming([p for p, _ in pairs],
+                                       pipeline=pipeline, **kw)
+    with _reference_x64():
+        (want, want_rows) = rprofiler.EnergyProfiler(period=5e-3, seed=3) \
+            .profile_multiworker_streaming([r for _, r in pairs],
+                                           pipeline="device", **kw)
+    assert got_rows == want_rows
+    _assert_estimates_close(got, want, rtol=1e-9)
+
+
+def test_multiworker_exchange_is_not_ported_yet():
     tls = [p for p, _ in (_pair(seed=0), _pair(seed=1))]
     prof = EnergyProfiler(period=5e-3, device="cpu")
-    with pytest.raises(NotImplementedError, match="run_combo_pipeline"):
-        prof.profile_multiworker_streaming(tls, pipeline=pipeline)
+    for pipeline in ("device", "host"):
+        with pytest.raises(NotImplementedError, match="A5"):
+            prof.profile_multiworker_streaming(tls, pipeline=pipeline,
+                                               exchange=object())
 
 
 # ---------------------------------------------------------------------------

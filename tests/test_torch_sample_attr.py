@@ -323,3 +323,101 @@ def test_emulated_fold_is_in_place_and_masks_nonfinite_lanes():
     assert carry[0].tolist() == [2, 3, 2]
     assert carry[1].tolist() == [2.0, 6.0, 5.0]
     assert carry[2].tolist() == [2.0, 14.0, 17.0]
+
+
+# ---------------------------------------------------------------------------
+# Host-seam chunk reducers ≡ the reference's (interpret mode).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,R", [(300, 5), (1024, 64), (2500, 37),
+                                 (700, 100)],
+                         ids=["short", "exact", "oversized", "r_rounded"])
+def test_chunked_aggregate_fn_matches_reference(n, R):
+    """A short chunk (topped up with -1), one of exactly the capacity, an
+    oversized one (three slices) and an R that rounds up to 128, at the
+    reference's kernel limits (its sums are float32)."""
+    ids, pw, _ = _stream(n, R, n + R)
+    pw32 = pw.astype(np.float32)
+    got = ops.chunked_aggregate_fn(1024, device="cpu")(
+        ids, pw32.astype(np.float64), R)
+    want = rops.chunked_aggregate_fn(1024, block_n=256, interpret=True)(
+        ids, pw32, R)
+    assert [a.shape for a in got] == [(R,)] * 3
+    assert got[0].dtype == np.int64 and got[1].dtype == np.float64
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-5)
+
+
+def test_sample_attr_chunk_matches_reference():
+    ids, pw, _ = _stream(512, 40, 8, pad=True)
+    pw32 = pw.astype(np.float32)
+    fold = ops.sample_attr_chunk(64, "cpu")
+    got = fold(torch.from_numpy(ids), torch.from_numpy(
+        pw32.astype(np.float64)))
+    assert got is fold.carry
+    want = rops.sample_attr_chunk(256, None, 64, True)(jnp.asarray(ids),
+                                                      jnp.asarray(pw32))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                               rtol=1e-5)
+    fold.reset()
+    assert not any(bool(t.any()) for t in fold.carry)
+
+
+def test_chunked_aggregate_fn_reuses_its_buffers(monkeypatch):
+    """Every slice of every call stages into the same two buffers and
+    folds into one carry per rounded R: nothing is allocated per chunk,
+    and a result does not change when the next call reuses the carry."""
+    seen = []
+    fold = ops.sample_attr_fold
+
+    def spy(counts, psum, psumsq, ids, pows, valid=None):
+        seen.append((counts.shape[0], counts.data_ptr(), ids.data_ptr(),
+                     pows.data_ptr()))
+        return fold(counts, psum, psumsq, ids, pows, valid)
+    monkeypatch.setattr(ops, "sample_attr_fold", spy)
+    agg = ops.chunked_aggregate_fn(256, device="cpu")
+    ids, pw, _ = _stream(1000, 30, 3)
+    first = agg(ids, pw, 30)
+    again = agg(ids[:100], pw[:100], 50)
+    agg(ids, pw, 70)
+    assert len(seen) == 4 + 1 + 4
+    assert len({s[2:] for s in seen}) == 1
+    assert len({s[:2] for s in seen}) == 2        # R 30, 50 → 64; 70 → 128
+    np.testing.assert_array_equal(first[0], np.bincount(ids, minlength=30))
+    np.testing.assert_array_equal(again[0],
+                                  np.bincount(ids[:100], minlength=50))
+
+
+def test_chunked_aggregate_fn_plugs_into_streaming_aggregators():
+    from repro_torch.core.streaming import (StreamingAggregator,
+                                            StreamingCombinationAggregator)
+    rng = np.random.default_rng(6)
+    mat = rng.integers(0, 5, (3000, 3))
+    pw = 80.0 + 40.0 * rng.random(3000)
+    plain = StreamingCombinationAggregator()
+    kern = StreamingCombinationAggregator(
+        aggregate_fn=ops.chunked_aggregate_fn(512, device="cpu"))
+    region = StreamingAggregator(
+        5, aggregate_fn=ops.chunked_aggregate_fn(512, device="cpu"))
+    for lo in range(0, 3000, 700):
+        plain.update(mat[lo:lo + 700], pw[lo:lo + 700])
+        kern.update(mat[lo:lo + 700], pw[lo:lo + 700])
+        region.update(mat[lo:lo + 700, 0], pw[lo:lo + 700])
+    assert kern.interner.combos == plain.interner.combos
+    np.testing.assert_array_equal(kern.agg.counts, plain.agg.counts)
+    np.testing.assert_allclose(kern.agg.psum, plain.agg.psum, rtol=1e-12)
+    np.testing.assert_array_equal(region.counts,
+                                  np.bincount(mat[:, 0], minlength=5))
+
+
+def test_chunked_aggregate_fn_defaults_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.chunked_aggregate_fn()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.sample_attr_chunk(64)
