@@ -4,8 +4,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in this checkout
-(``build/kernels/``, one ``nvcc`` per source, all started together), then
+It builds the port's CUDA kernels and the stream-order marker library
+from the sources in this checkout (``build/kernels/``, one ``nvcc`` per
+source, all started together), then
 runs these phases, and fails (non-zero exit) if any check fails:
 
 1. clock    — the sample clock on the GPU equals the CPU's bit for bit;
@@ -17,7 +18,9 @@ runs these phases, and fails (non-zero exit) if any check fails:
               GPU against ``reference_combo_pipeline`` for W in {1, 4}
               workers, D in {1, 3}, every trace sensor, ~10^6 samples
               each (combination order, n and counts equal, sums to
-              rtol), two runs bitwise equal, one bounded run;
+              rtol; t_lo/t_hi equal, the power and energy bounds within
+              the gap power_ci's variance cancellation allows), two runs
+              bitwise equal, one bounded run;
 3. full     — the profiler's main path at full size: one profiling run of
               a 4096-region, 2^20-interval, 3-rail timeline at >= 10^8
               samples (chunk 65536), with the launch counters set to 0
@@ -29,10 +32,18 @@ runs these phases, and fails (non-zero exit) if any check fails:
               10^4-10^5 combinations, counters set to 0 just before and
               read just after (one fold per chunk plus one per miss
               chunk); wall per layer of one steady-state chunk;
+   exchange — the cross-host shard exchange in an NCCL world of one:
+              ``CollectiveExchange`` and ``CheckpointExchange`` reduce
+              combo-full's and the full run's aggregators to themselves
+              bit for bit, and ``profile_multiworker_streaming(exchange=
+              ...)`` equals ``exchange=None`` at W=4; seconds of each
+              reduce, spill and gather;
    host-seam — the host chunk seam with ``chunked_aggregate_fn`` on the
               GPU against the numpy seam; host-session — a short
               ``host_session`` around GPU work, marked by ``region`` and
-              by ``mark_in_jit``;
+              by ``mark_in_jit``, and ``mark_in_jit`` in stream order (a
+              long kernel queued at once takes the samples taken while
+              it runs; under a watchdog);
 4. kernel   — every kernel against its plain PyTorch version at the
               shapes its path gives it, at the stated tolerances:
               ``sample_attr`` on uniform ids (equal counts, sums to rtol,
@@ -78,6 +89,7 @@ result. It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -107,6 +119,48 @@ def log(*args):
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+@contextlib.contextmanager
+def watchdog(seconds, what):
+    """Fail the script (exit 1) if the block has not finished within
+    ``seconds``: a deadlock or a hung collective ends the run instead of
+    holding the card until the call's limit."""
+    import threading
+
+    def fire():
+        print(f"check failed: {what} did not finish within {seconds} s",
+              file=sys.stderr, flush=True)
+        os._exit(1)
+
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+@contextlib.contextmanager
+def captured_aggregators():
+    """The region aggregators ``StreamingAggregator.from_statistics``
+    builds inside the block (the profiler's own, kept for the exchange
+    phase); one extra list append a call."""
+    from repro_torch.core.streaming import StreamingAggregator
+    made = []
+    orig = StreamingAggregator.__dict__["from_statistics"]
+
+    def keep(cls, *args, **kw):
+        agg = orig.__func__(cls, *args, **kw)
+        made.append(agg)
+        return agg
+
+    StreamingAggregator.from_statistics = classmethod(keep)
+    try:
+        yield made
+    finally:
+        StreamingAggregator.from_statistics = orig
 
 
 def time_ms(fn, *, warmup=3, iters=20):
@@ -591,6 +645,88 @@ def _combo_stats_check(what, got, n, want, wn, rtol):
               f"rtol={rtol}")
 
 
+BOUNDS_K = 8     # eps multiples for the rounding of power_ci's own steps
+
+
+def check_estimate_bounds(what, est, oracle, got, want):
+    """Interval bounds of two estimate sets whose sufficient statistics
+    (``got`` against ``want``, aggregators) differ only by summation
+    order. ``t_lo``/``t_hi`` depend on counts alone: equal bit for bit.
+    The power and energy bounds go through ``power_ci``'s
+    ``var = (sq − cnt·hat²)/(cnt−1)``, which cancels: where a row's
+    samples all read nearly one power, var is zero up to rounding and
+    ``se = sqrt(var/cnt)`` turns an ulp of the sums into ~sqrt(eps) of
+    the bound. So each bound is held within the gap that cancellation
+    allows, from the two sides' own sums:
+
+    |Δvar| ≤ (|Δsq| + |Δs|·(|hat_a| + |hat_b|)
+              + K·eps·(sq + cnt·hat²)) / (cnt − 1),
+    |Δse| ≤ min(sqrt(|Δvar|/cnt), |Δvar|/cnt / (se_a + se_b)),
+    |Δpow_lo|, |Δpow_hi| ≤ |Δs|/cnt + 2·eps·|hat| + z·|Δse|
+                           + K·eps·|bound|,
+    |Δe_lo|, |Δe_hi| ≤ t_lo (t_hi)·|Δpow bound| + K·eps·|e bound|,
+
+    with K = ``BOUNDS_K``; per rail the same. The sums themselves stay
+    held at ``PIPELINE_RTOL`` by the caller."""
+    import numpy as np
+    from repro_torch.core.estimator import z_quantile
+    a, b = est.table, oracle.table
+    check(np.array_equal(a.region_ids, b.region_ids), f"{what}: rows")
+    for f in ("n_samples", "p_hat", "t_hat", "t_lo", "t_hi", "ci_valid"):
+        check(np.array_equal(getattr(a, f), getattr(b, f)),
+              f"{what}: {f} equal bit for bit")
+    eps = np.finfo(np.float64).eps
+    z = z_quantile(est.alpha)
+    rows = a.region_ids
+    cnt = a.n_samples.astype(np.float64)
+    _, s_a, q_a = got.agg.channel_statistics()
+    _, s_b, q_b = want.agg.channel_statistics()
+    worst = 0.0
+    cols = [("pow", "e", -1)]
+    if a.pow_rails is not None:
+        cols += [(f"pow_rails[{d}]", f"e_rails[{d}]", d)
+                 for d in range(a.pow_rails.shape[1])]
+    for pname, ename, ch in cols:
+        sa, sb = s_a[rows, ch], s_b[rows, ch]
+        qa, qb = q_a[rows, ch], q_b[rows, ch]
+        hat = np.maximum(np.abs(sa), np.abs(sb)) / cnt
+        ds, dq = np.abs(sa - sb), np.abs(qa - qb)
+        dvar = np.where(cnt > 1, (dq + ds * 2 * hat + BOUNDS_K * eps * (
+            np.maximum(qa, qb) + cnt * hat * hat)) / np.maximum(cnt - 1, 1),
+            0.0)
+        # |sqrt(x) - sqrt(y)| <= min(sqrt(|x - y|), |x - y| / (sqrt(x) +
+        # sqrt(y))): the cancellation's sqrt(eps) only where var ~ 0.
+        se = sum(np.sqrt(np.maximum(np.where(
+            cnt > 1, (q - s * s / cnt) / np.maximum(cnt - 1, 1), 0.0), 0.0)
+            / cnt) for s, q in ((sa, qa), (sb, qb)))
+        dse = np.minimum(np.sqrt(dvar / cnt), np.divide(
+            dvar / cnt, se, out=np.full_like(se, np.inf), where=se > 0))
+        dpow = ds / cnt + 2 * eps * hat + z * dse
+        for side, t in (("lo", a.t_lo), ("hi", a.t_hi)):
+            if ch < 0:
+                pa, pb = getattr(a, f"pow_{side}"), getattr(b, f"pow_{side}")
+                ea, eb = getattr(a, f"e_{side}"), getattr(b, f"e_{side}")
+            else:
+                pa = getattr(a, f"pow_rails_{side}")[:, ch]
+                pb = getattr(b, f"pow_rails_{side}")[:, ch]
+                ea = getattr(a, f"e_rails_{side}")[:, ch]
+                eb = getattr(b, f"e_rails_{side}")[:, ch]
+            tol_p = dpow + BOUNDS_K * eps * np.maximum(np.abs(pa),
+                                                       np.abs(pb))
+            tol_e = t * tol_p + BOUNDS_K * eps * np.maximum(np.abs(ea),
+                                                            np.abs(eb))
+            for name, x, y, tol in ((f"{pname}_{side}", pa, pb, tol_p),
+                                    (f"{ename}_{side}", ea, eb, tol_e)):
+                d = np.abs(x - y)
+                r = np.divide(d, tol, out=np.where(d > 0, np.inf, 0.0),
+                              where=tol > 0)
+                top = float(r.max(initial=0.0))
+                check(top <= 1.0, f"{what}: {name} within the cancellation "
+                      f"bound (worst {top:.3g} of it)")
+                worst = max(worst, top)
+    return worst
+
+
 def _region_counts(agg, R):
     """Samples per region of the first worker (the region axis of a
     bounded table's ``other`` rows)."""
@@ -643,17 +779,15 @@ def combo_parity_phase():
                 check(np.array_equal(est.table.n_samples,
                                      oracle.table.n_samples),
                       f"{what}: estimate counts")
-                # First moments only: a combination whose few samples all
-                # read one power has a sample variance that is zero up to
-                # rounding, so its interval bounds differ by ~sqrt(eps)
-                # between two summation orders; they are functions of
-                # the sums checked above.
                 for f in ("t_hat", "pow_hat", "e_hat", "pow_rails",
                           "e_rails"):
                     a, b = getattr(est.table, f), getattr(oracle.table, f)
                     check((a is None and b is None) or np.allclose(
                         a, b, rtol=PIPELINE_RTOL, atol=0.0),
                           f"{what}: estimate {f}")
+                # The interval bounds: t_lo/t_hi bit for bit, the power
+                # and energy bounds within power_ci's cancellation gap.
+                worst = check_estimate_bounds(what, est, oracle, got, want)
                 extra = ""
                 if name == "rapl":
                     again, _ = dp.run_combo_pipeline(dtl, spec, **kw)
@@ -686,7 +820,9 @@ def combo_parity_phase():
                     f"combinations, {stats['miss_chunks']} of "
                     f"{stats['chunks']} chunks missed; order, counts equal, "
                     f"sums rtol {PIPELINE_RTOL}, first-moment estimates "
-                    f"equal; GPU run {t_gpu:.3f} s" + extra)
+                    f"equal, t_lo/t_hi equal, power/energy bounds within "
+                    f"the cancellation bound (worst {worst:.3g} of it, "
+                    f"K={BOUNDS_K}); GPU run {t_gpu:.3f} s" + extra)
             del dtl
 
 
@@ -727,11 +863,12 @@ def full_phase(tl):
     counters = launch_counters()
     for c in counters:
         c.launches = 0
-    t0 = time.perf_counter()
-    est = prof.profile_timeline_streaming(tl, sensor="instant",
-                                          chunk_size=chunk,
-                                          pipeline="device")
-    secs = time.perf_counter() - t0
+    with captured_aggregators() as aggs:
+        t0 = time.perf_counter()
+        est = prof.profile_timeline_streaming(tl, sensor="instant",
+                                              chunk_size=chunk,
+                                              pipeline="device")
+        secs = time.perf_counter() - t0
     launches = ops.sample_attr_fold.launches
     others = {c.__name__: c.launches for c in counters
               if c is not ops.sample_attr_fold}
@@ -755,8 +892,9 @@ def full_phase(tl):
         f"({n / secs:.4e} samples/s), peak device memory "
         f"{peak / 2 ** 20:.1f} MiB, sample_attr launches {launches}, "
         f"regions attributed {len(est.table)}")
+    check(len(aggs) == 1, "full: one aggregator built")
     return dict(n=n, chunks=n_chunks, seconds=secs, launches=launches,
-                peak_bytes=peak)
+                peak_bytes=peak, agg=aggs[0])
 
 
 class FullChunk:
@@ -1072,7 +1210,7 @@ def combo_full_phase(tl):
         + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
     return dict(n=n, chunks=chunks, miss_chunks=misses, seconds=secs,
                 launches=launches, peak_bytes=peak, distinct=distinct,
-                cap=cap, walls=walls, chunk=ch)
+                cap=cap, walls=walls, chunk=ch, agg=agg)
 
 
 def combo_fold_phase(combo):
@@ -1121,6 +1259,117 @@ def combo_fold_phase(combo):
 # ---------------------------------------------------------------------------
 # Host seam and host sessions.
 # ---------------------------------------------------------------------------
+
+
+def _agg_bits_equal(a, b):
+    """Combination order, counts and every channel's sums bit for bit."""
+    import numpy as np
+    ra = getattr(a, "interner", None)
+    rb = getattr(b, "interner", None)
+    if (ra is None) != (rb is None):
+        return False
+    if ra is not None and ra.combos != rb.combos:
+        return False
+    sa = (a.agg if ra is not None else a).channel_statistics()
+    sb = (b.agg if rb is not None else b).channel_statistics()
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and x.tobytes() == y.tobytes() for x, y in zip(sa, sb))
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def exchange_phase(region_agg, combo_agg, smi):
+    """The cross-host shard exchange on the card, in a world of one
+    (NCCL): (a) ``CollectiveExchange().reduce`` and (b)
+    ``CheckpointExchange(tmpdir).reduce`` of combo-full's aggregator
+    (65 536 combinations × 16 workers) and of the full run's region
+    aggregator (4096 regions, 3 rails) each return their input bit for
+    bit; (c) ``profile_multiworker_streaming(exchange=...)`` with either
+    strategy at combo-parity W=4 equals ``exchange=None`` column for
+    column. Prints the seconds of each reduce (the collective's first
+    call includes NCCL's set-up), of the spill and of the gather, and the
+    spill's bytes. A hung collective fails the phase (watchdog)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import exchange as ex
+    from repro_torch.core.profiler import EnergyProfiler
+    from repro_torch.launch.mesh import make_exchange_mesh
+    with watchdog(300, "exchange phase"):
+        t0 = time.perf_counter()
+        mesh = make_exchange_mesh(device="cuda")
+        t_mesh = time.perf_counter() - t0
+        check(dist.get_backend() == "nccl" and mesh.size() == 1,
+              "exchange: NCCL world of one")
+        for name, agg in (("combination", combo_agg), ("region", region_agg)):
+            rows = (len(agg.interner) if name == "combination"
+                    else agg.num_regions)
+            coll = ex.CollectiveExchange(mesh)
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = coll.reduce(agg)
+                times.append(time.perf_counter() - t0)
+                check(_agg_bits_equal(out, agg), f"exchange {name}: "
+                      f"collective reduce == input bit for bit")
+            with tempfile.TemporaryDirectory() as d:
+                t0 = time.perf_counter()
+                out = ex.CheckpointExchange(os.path.join(d, "a"),
+                                            host_id=0).reduce(agg)
+                t_ckpt = time.perf_counter() - t0
+                check(_agg_bits_equal(out, agg), f"exchange {name}: "
+                      f"checkpoint reduce == input bit for bit")
+                t0 = time.perf_counter()
+                ex.spill_shard(os.path.join(d, "b"), 0, 1, agg)
+                t_spill = time.perf_counter() - t0
+                nbytes = _dir_bytes(os.path.join(d, "b"))
+                t0 = time.perf_counter()
+                back = ex.gather_shards(os.path.join(d, "b"))
+                t_gather = time.perf_counter() - t0
+                check(_agg_bits_equal(back, agg), f"exchange {name}: "
+                      f"spill + gather == input bit for bit")
+            log(f"exchange {name} ({rows} rows, "
+                f"{len(agg.domains)} domains): collective reduce {times[0]:.4f} s (first, "
+                f"NCCL set-up included) / {times[1]:.4f} s, checkpoint "
+                f"reduce {t_ckpt:.4f} s (spill {t_spill:.4f} s + gather "
+                f"{t_gather:.4f} s of {nbytes} bytes); all bit for bit "
+                f"[{smi}]")
+
+        # (c) the profiler's exchange= at combo-parity W=4.
+        tls = [parity_timeline(False, seed=2 + w) for w in range(4)]
+        t_end = min(t.t_exec for t in tls)
+        period = t_end / 1.05e6
+        prof = EnergyProfiler(period=period, jitter=0.2 * period, seed=5,
+                              device="cuda")
+        kw = dict(sensor="instant", chunk_size=65536, pipeline="device")
+        alone, rows = prof.profile_multiworker_streaming(tls, **kw)
+        with tempfile.TemporaryDirectory() as d:
+            for name, strategy in (
+                    ("collective", ex.CollectiveExchange(mesh)),
+                    ("checkpoint", ex.CheckpointExchange(d, host_id=0))):
+                t0 = time.perf_counter()
+                est, erows = prof.profile_multiworker_streaming(
+                    tls, exchange=strategy, **kw)
+                secs = time.perf_counter() - t0
+                check(erows == rows, f"exchange profiler {name}: "
+                      f"combinations")
+                for f in ("region_ids", "n_samples", "p_hat", "t_hat",
+                          "t_lo", "t_hi", "pow_hat", "pow_lo", "pow_hi",
+                          "e_hat", "e_lo", "e_hi", "ci_valid"):
+                    check(np.array_equal(getattr(est.table, f),
+                                         getattr(alone.table, f)),
+                          f"exchange profiler {name}: {f} == exchange=None")
+                log(f"exchange profiler W=4 {name}: {est.n_total} samples, "
+                    f"{len(rows)} combinations, estimates equal to "
+                    f"exchange=None column for column; run {secs:.3f} s")
+        dist.destroy_process_group()
+    log(f"exchange: mesh (NCCL, world of one) set up in {t_mesh:.3f} s")
 
 
 def host_seam_phase():
@@ -1203,6 +1452,56 @@ def host_session_phase(dev):
             f"{type(sess.sampler.sensor).__name__}); "
             + ", ".join(f"{k} n={r.n_samples} t_hat={r.t_hat:.4f} s"
                         for k, r in sorted(seen.items())))
+    with watchdog(120, "host-session stream order"):
+        stream_order_check(prof)
+
+
+def stream_order_check(prof, kernel_s=0.5, after_s=0.1):
+    """``mark_in_jit`` marks in stream order: one region is marked, a
+    ~``kernel_s`` device kernel (``torch.cuda._sleep``) is queued and the
+    host returns at once, then a host-only region is marked and the host
+    waits for the stream and ``after_s`` more. The samples taken while
+    the kernel runs must fall in the long region (stored at issue time,
+    they would fall in the host region)."""
+    import torch
+    from repro_torch.core import regions
+    from repro_torch.core.stream_marker import StreamMarker
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(50_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(50_000_000 * kernel_s * 1e3 / start.elapsed_time(end))
+    with prof.host_session(jit_marking=True) as sess:
+        check(isinstance(sess.marker, StreamMarker),
+              "host-session stream order: the CUDA session's marker is a "
+              "StreamMarker")
+        t0 = time.perf_counter()
+        regions.mark_in_jit("gpu_long")
+        torch.cuda._sleep(cycles)
+        regions.mark_in_jit("host_after")
+        t_issue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        time.sleep(after_s)
+    est = sess.estimates()
+    seen = {r.name: r for r in est.regions if r.n_samples}
+    n_long = seen["gpu_long"].n_samples if "gpu_long" in seen else 0
+    n_host = seen["host_after"].n_samples if "host_after" in seen else 0
+    t_long = seen["gpu_long"].t_hat if "gpu_long" in seen else 0.0
+    what = "host-session stream order"
+    check(sess.marker.queued == 2, f"{what}: 2 stores queued on the stream")
+    check(t_issue < 0.1 * t_kernel, f"{what}: the host queued the kernel "
+          f"at once ({t_issue:.4f} s of {t_kernel:.3f} s)")
+    check(n_long > n_host, f"{what}: gpu_long n={n_long} > host_after "
+          f"n={n_host}")
+    check(t_long >= 0.5 * t_kernel, f"{what}: t_hat(gpu_long) "
+          f"{t_long:.3f} s >= half the kernel's {t_kernel:.3f} s")
+    log(f"{what}: kernel {t_kernel:.3f} s queued in {t_issue * 1e3:.3f} ms; "
+        f"gpu_long n={n_long} t_hat={t_long:.3f} s, host_after n={n_host} "
+        f"(host-only {after_s} s); 2 stores queued in stream order")
 
 
 # ---------------------------------------------------------------------------
@@ -1440,7 +1739,7 @@ def main():
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
-    names = ["sample_attr", "flash_attention", "rmsnorm"]
+    names = ["sample_attr", "flash_attention", "rmsnorm", "stream_marker"]
     t0 = time.perf_counter()
     _build.build(names)
     log(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s "
@@ -1460,6 +1759,7 @@ def main():
         f"(synthesized in {time.perf_counter() - t0:.1f} s)")
     full = full_phase(tl)
     combo = combo_full_phase(tl)
+    exchange_phase(full.pop("agg"), combo.pop("agg"), smi)
     host_seam_phase()
     host_session_phase(dev)
     kernel_phase(dev)

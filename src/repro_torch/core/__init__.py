@@ -2,9 +2,9 @@
 
 The port's surface covers what its slices have ported so far: the host
 numpy modules, the device pipeline (single-worker and combination), the
-profiler with its host sessions, and the region markers
-(``core.regions``). Exchange, checkpoints and energy optimisation are
-not ported yet, and nothing here imports them.
+profiler with its host sessions, the region markers (``core.regions``)
+and the cross-host shard exchange (``core.exchange``). Energy
+optimisation is not ported yet, and nothing here imports it.
 """
 
 from repro_torch.core.attribution import (AttributionReport,
@@ -16,6 +16,11 @@ from repro_torch.core.estimator import (AggregateFn, EstimateSet,
                                         estimate_regions,
                                         estimates_from_statistics,
                                         z_quantile)
+from repro_torch.core.exchange import (CheckpointExchange,
+                                       CollectiveExchange, PackedShard,
+                                       collective_reduce, gather_shards,
+                                       pack_shard, restore_shard,
+                                       spill_shard, unpack_shard)
 from repro_torch.core.power_model import (TPU_V5E, HardwareSpec, PowerModel,
                                           PowerModelParams)
 from repro_torch.core.profiler import EnergyProfiler, HostSession
@@ -36,6 +41,9 @@ __all__ = [
     "AggregateFn", "EstimateSet", "EstimateTable", "RegionEstimate",
     "aggregate_samples_np", "estimate_combinations", "estimate_regions",
     "estimates_from_statistics", "z_quantile",
+    "CheckpointExchange", "CollectiveExchange", "PackedShard",
+    "collective_reduce", "gather_shards", "pack_shard", "restore_shard",
+    "spill_shard", "unpack_shard",
     "CombinationInterner", "StreamingAggregator",
     "StreamingCombinationAggregator", "stream_estimate",
     "TPU_V5E", "HardwareSpec", "PowerModel", "PowerModelParams",

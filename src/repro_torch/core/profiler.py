@@ -36,6 +36,7 @@ from repro_torch.core.sampler import (HostSampler, RegionMarker,
                                       sample_timeline_multiworker)
 from repro_torch.core.sensors import (Ina231TraceSensor, InstantTraceSensor,
                                       RaplTraceSensor, available_host_sensor)
+from repro_torch.core.stream_marker import StreamMarker
 from repro_torch.core.streaming import (StreamingAggregator,
                                         StreamingCombinationAggregator)
 from repro_torch.core.timeline import Timeline
@@ -56,14 +57,20 @@ class HostSession:
     permits; passing a :class:`~repro_torch.core.sensors.HostSensorBank`
     makes the session multi-rail — the sampler drains [n, D] power
     matrices and :meth:`estimates` carries per-domain columns, exactly
-    like the timeline paths. Samples attribute host time: on the GPU a
-    region is current while its work is being queued, not while it runs.
+    like the timeline paths. Samples under ``region`` attribute host
+    time: on the GPU a region is current while its work is being queued.
+    Under ``jit_marking`` on a CUDA profiler the marker is a
+    :class:`~repro_torch.core.stream_marker.StreamMarker`, so
+    ``mark_in_jit`` marks in stream order (its library is built here, and
+    a failure raises).
     """
 
     def __init__(self, profiler: "EnergyProfiler", jit_marking: bool,
                  sensor=None):
         self._prof = profiler
-        self.marker = RegionMarker()
+        self.marker = (StreamMarker(profiler.device)
+                       if jit_marking and profiler.device.type == "cuda"
+                       else RegionMarker())
         sensor = available_host_sensor() if sensor is None else sensor
         min_period = (sensor.effective_min_period()
                       if hasattr(sensor, "effective_min_period")
@@ -245,14 +252,24 @@ class EnergyProfiler:
         table fold through the ``sample_attr`` kernel with no host
         transfer beyond a one-scalar miss flag.
 
-        ``exchange`` (the cross-host shard exchange of the final
-        reduction) is not ported yet: any value but ``None`` raises.
+        ``exchange`` selects the cross-host shard-exchange strategy for
+        the final reduction (:mod:`repro_torch.core.exchange`): a
+        ``CollectiveExchange`` all-reduces this host's aggregator over a
+        mesh axis, a ``CheckpointExchange`` spills it durably and merges
+        every published host shard — combination ids are deduped lazily
+        at merge in both cases. ``None`` keeps the single-host result.
+
+        Restart semantics: sampling here is deterministic in ``seed``,
+        so a restarted host re-produces its complete shard and the final
+        spill republishes LATEST idempotently — the previous spill is
+        deliberately NOT merged in (that would double-count every
+        sample). Under the checkpoint exchange's default delta mode the
+        idempotent republish is itself incremental: the regenerated
+        shard matches the restored chain row for row, so the new epoch
+        is an empty delta and gathers stay bit-exact. Incremental
+        resume-from-spill is for accumulating consumers
+        (``PhaseEnergyAccountant``, direct ``restore_shard``).
         """
-        if exchange is not None:
-            raise NotImplementedError(
-                "cross-host exchange (ROADMAP item A5: core/exchange.py "
-                "and checkpoint/ckpt.py) is not ported yet; pass "
-                "exchange=None")
         use_seed = self.seed if seed is None else seed
         if self._resolve_pipeline(pipeline, aggregate_fn):
             from repro_torch.core import device_pipeline as dp
@@ -270,6 +287,8 @@ class EnergyProfiler:
                 timelines, lambda tl: _SENSORS[sensor](tl),
                 period=self.period, jitter=self.jitter,
                 seed=use_seed, chunk_size=chunk_size))
+        if exchange is not None:
+            agg = exchange.reduce(agg)
         t_end = min(tl.t_exec for tl in timelines)
         return agg.estimates(t_end, timelines[0].names, alpha=self.alpha)
 

@@ -20,10 +20,13 @@ When no session is active the context manager is a plain
 ``record_function``, which costs nothing measurable unless a profiler is
 recording.
 
-:func:`mark_in_jit` is the counterpart of the reference's in-graph
-marker store. The port runs eagerly, so it stores the marker at the
-point where the host issues the call: on the GPU that is when the
-following work is queued, not when it runs.
+:func:`mark_in_jit` is the counterpart of the reference's in-graph,
+ordered marker store. On a CPU session it stores at once, which is
+already in order; on a CUDA session the marker is a
+:class:`~repro_torch.core.stream_marker.StreamMarker` and the store is
+queued on the current CUDA stream, so it fires when the GPU reaches it:
+samples see the region whose device work is running, not the one being
+queued.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Iterator
 from torch.profiler import record_function
 
 from repro_torch.core.sampler import RegionMarker
+from repro_torch.core.stream_marker import StreamMarker
 
 __all__ = ["RegionRegistry", "region", "registry", "profiling_session",
            "mark_in_jit"]
@@ -99,15 +103,21 @@ def mark_in_jit(name: str, dep=None):
     ``jit_marking=True`` only; a no-op otherwise). Returns ``dep``
     unchanged so callers can thread it for ordering, as in the reference.
 
-    It marks host issue order: PyTorch runs eagerly, so the store happens
-    when this line runs, which on the GPU is when the work after it is
-    queued, not when that work executes. Meant for host-mode validation
-    runs, as the reference's in-graph store is; there is no device-side
-    callback behind it.
+    It marks in execution order, as the reference's ordered callback
+    does: a session on the GPU holds a
+    :class:`~repro_torch.core.stream_marker.StreamMarker`, and the store
+    is queued on the current CUDA stream behind the work issued before
+    this call (it raises if CUDA refuses it); a CPU session's marker
+    stores at once. Meant for host-mode validation runs, as the
+    reference's in-graph store is.
     """
     rid = registry.intern(name)
-    if _active_marker is not None and _in_jit_marking:
-        _active_marker.set(rid)
+    m = _active_marker
+    if m is not None and _in_jit_marking:
+        if isinstance(m, StreamMarker):
+            m.set_in_stream(rid)
+        else:
+            m.set(rid)
     return dep
 
 

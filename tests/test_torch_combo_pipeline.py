@@ -453,3 +453,87 @@ def test_w1_combo_pipeline_bit_equal_to_region_pipeline(sensor, domains):
                                   chan_psum[order])
     np.testing.assert_array_equal(psumsq.reshape(chan_psumsq[order].shape),
                                   chan_psumsq[order])
+
+
+# ---------------------------------------------------------------------------
+# Interval bounds between two summation orders (chip_smoke's combo-parity
+# check, run here on the kernel's order emulated on the CPU).
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _one_interval_regions(w, R=64, seed=1):
+    """W workers whose regions each run once (one interval, one power), so
+    under the instant sensor every combination's samples read nearly one
+    power and its sample variance is zero up to rounding."""
+    rng = np.random.default_rng(seed)
+    costs = [RegionCost(f"r{i}", flops=float(f), hbm_bytes=float(b),
+                        invocations=1)
+             for i, (f, b) in enumerate(zip(10 ** rng.uniform(11.5, 12.5, R),
+                                            10 ** rng.uniform(9, 10.5, R)))]
+    return [synthesize(costs, steps=1, seed=2 + k) for k in range(w)]
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+def test_combo_bounds_hold_through_the_variance_cancellation(w,
+                                                             monkeypatch):
+    """The fold in the kernel's summation order (``sample_attr_fold_
+    emulated``) against the numpy oracle: sums within rtol 1e-9, but the
+    near-zero-variance rows' ``pow_lo`` differ by ~1e-8 relative, beyond
+    1e-9. chip_smoke's bounds check holds t_lo/t_hi exactly and the power
+    and energy bounds within the gap power_ci's cancellation allows."""
+    from repro_torch.kernels.sample_attr import ref
+    monkeypatch.setattr(dp, "sample_attr_fold",
+                        ref.sample_attr_fold_emulated)
+    tls = _one_interval_regions(w)
+    spec = sensors.InstantTraceSensor.make_spec(domains=tls[0].domain_names)
+    t_end = min(t.t_exec for t in tls)
+    period = t_end / 3000
+    kw = dict(period=period, jitter=0.2 * period, seed=5, chunk_size=1024)
+    got, n = dp.run_combo_pipeline(_dtl(tls), spec, **kw)
+    want, wn = dp.reference_combo_pipeline(tls, lambda tl: spec, **kw)
+    assert n == wn
+    _assert_agg_close(got, want)
+    est, _ = got.estimates(t_end, tls[0].names)
+    oracle, _ = want.estimates(t_end, tls[0].names)
+    rel = np.abs(est.table.pow_lo - oracle.table.pow_lo) / np.abs(
+        oracle.table.pow_lo)
+    assert rel.max() > 1e-9            # the gap an rtol-1e-9 check fails on
+    worst = _chip_smoke().check_estimate_bounds("cpu", est, oracle, got,
+                                                want)
+    assert 0.0 < worst <= 1.0
+
+
+def test_combo_bounds_check_catches_a_wrong_bound(monkeypatch):
+    """A bound moved by 1e-7 relative (t_hi by an ulp) fails the check."""
+    import dataclasses
+    from repro_torch.kernels.sample_attr import ref
+    monkeypatch.setattr(dp, "sample_attr_fold",
+                        ref.sample_attr_fold_emulated)
+    tls = _one_interval_regions(2)
+    spec = sensors.InstantTraceSensor.make_spec(domains=tls[0].domain_names)
+    t_end = min(t.t_exec for t in tls)
+    kw = dict(period=t_end / 3000, jitter=0.0, seed=5, chunk_size=1024)
+    got, _ = dp.run_combo_pipeline(_dtl(tls), spec, **kw)
+    want, _ = dp.reference_combo_pipeline(tls, lambda tl: spec, **kw)
+    est, _ = got.estimates(t_end, tls[0].names)
+    oracle, _ = want.estimates(t_end, tls[0].names)
+    cs = _chip_smoke()
+    assert cs.check_estimate_bounds("cpu", est, oracle, got, want) <= 1.0
+    row = np.argmax(est.table.n_samples)
+    for col, scale in (("pow_hi", 1 + 1e-7), ("e_lo", 1 - 1e-7),
+                       ("t_hi", 1 + 1e-15)):
+        bad = getattr(est.table, col).copy()
+        bad[row] *= scale
+        wrong = dataclasses.replace(
+            est, table=dataclasses.replace(est.table, **{col: bad}))
+        with pytest.raises(RuntimeError, match="check failed"):
+            cs.check_estimate_bounds("cpu", wrong, oracle, got, want)

@@ -134,3 +134,115 @@ def test_host_session_with_jit_marking_samples_marked_regions():
     assert "jitbusy" in names
     assert "unmarked" not in names
     assert est.by_name()["jitbusy"].n_samples >= 5
+
+
+# ---------------------------------------------------------------------------
+# mark_in_jit in CUDA stream order (StreamMarker). The library and the card
+# are absent here: a stand-in for the C library records what would be
+# queued; chip_smoke's host-session phase holds the real one on the GPU.
+# ---------------------------------------------------------------------------
+
+class _FakeLibrary:
+    """The C library's entry points over a dict: ``sm_mark`` queues a store
+    that :meth:`drain` applies, as the stream would when it got there."""
+
+    def __init__(self, err=0):
+        self.slots, self.queue, self.err, self.released = {}, [], err, []
+
+    def sm_slot_new(self):
+        self.slots[7] = 0
+        return 7
+
+    def sm_slot_get(self, slot):
+        return self.slots[slot]
+
+    def sm_slot_set(self, slot, value):
+        self.slots[slot] = value
+
+    def sm_slot_release(self, slot):
+        self.released.append(slot)
+
+    def sm_mark(self, slot, value, stream, device):
+        if self.err:
+            return self.err
+        self.queue.append((slot, value, stream, device))
+        return 0
+
+    def sm_error_string(self, err):
+        return b"invalid resource handle"
+
+    def drain(self):
+        for slot, value, _, _ in self.queue:
+            self.slots[slot] = value
+        self.queue.clear()
+
+
+@pytest.fixture
+def fake_stream(monkeypatch):
+    import types
+
+    import torch
+
+    from repro_torch.core import stream_marker
+    lib = _FakeLibrary()
+    lib.real = stream_marker._library
+    monkeypatch.setattr(stream_marker, "_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda index=None: types.SimpleNamespace(
+                            cuda_stream=0xBEEF))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    return lib
+
+
+def test_mark_in_jit_queues_the_store_on_the_stream(fake_stream):
+    """Under a StreamMarker the store waits for the stream: the marker
+    keeps its region until the queued store fires."""
+    from repro_torch.core.stream_marker import StreamMarker
+    marker = StreamMarker("cuda:0")
+    rid = regions.registry.intern("gpu_long")
+    with regions.profiling_session(marker, jit_marking=True):
+        regions.mark_in_jit("gpu_long")
+        assert marker.value == 0                 # queued, not stored
+        assert fake_stream.queue == [(7, rid, 0xBEEF, 0)]
+        fake_stream.drain()
+        assert marker.value == rid
+        regions.mark_in_jit("<other>")
+        assert marker.value == rid
+        fake_stream.drain()
+        assert marker.value == 0
+    assert marker.queued == 2
+    marker.set(5)                                # host order, at once
+    assert marker.value == 5
+    del marker
+    assert fake_stream.released == [7]
+
+
+def test_stream_marker_failures_raise_and_never_fall_back(fake_stream,
+                                                         monkeypatch):
+    """A store CUDA refuses raises, leaving the marker as it was; a library
+    that does not build raises when the marker is made."""
+    from repro_torch.core import stream_marker
+    from repro_torch.kernels import _build
+    marker = stream_marker.StreamMarker("cuda:0")
+    fake_stream.err = 400
+    with regions.profiling_session(marker, jit_marking=True):
+        with pytest.raises(RuntimeError, match="cudaLaunchHostFunc"):
+            regions.mark_in_jit("refused")
+    assert marker.value == 0 and marker.queued == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        stream_marker.StreamMarker("cpu")
+
+    def no_build(name):
+        raise RuntimeError(f"kernel build failed: {name}")
+    monkeypatch.setattr(stream_marker, "_library",
+                        fake_stream.real.__wrapped__)
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(RuntimeError, match="stream_marker"):
+        stream_marker.StreamMarker("cuda:0")
+
+
+def test_cpu_session_keeps_the_immediate_marker():
+    prof = EnergyProfiler(period=1e-3, device="cpu")
+    for jit_marking in (False, True):
+        assert type(prof.host_session(jit_marking=jit_marking).marker) \
+            is RegionMarker

@@ -172,15 +172,6 @@ def test_multiworker_device_matches_reference(pipeline):
     _assert_estimates_close(got, want, rtol=1e-9)
 
 
-def test_multiworker_exchange_is_not_ported_yet():
-    tls = [p for p, _ in (_pair(seed=0), _pair(seed=1))]
-    prof = EnergyProfiler(period=5e-3, device="cpu")
-    for pipeline in ("device", "host"):
-        with pytest.raises(NotImplementedError, match="A5"):
-            prof.profile_multiworker_streaming(tls, pipeline=pipeline,
-                                               exchange=object())
-
-
 # ---------------------------------------------------------------------------
 # Pipeline selection and the device rule.
 # ---------------------------------------------------------------------------
