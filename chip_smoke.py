@@ -79,7 +79,20 @@ runs these phases, and fails (non-zero exit) if any check fails:
               token; prints prefill ms and tokens/s, decode ms per step,
               peak device memory, and device time by region (``embed``,
               ``attn``, ``ffn``, ``lm_head``) from a torch.profiler trace
-              of one prefill.
+              of one prefill;
+7. serve    — the serving engine on the same model (bf16, random weights
+              from seed 0): the launcher ``repro_torch.launch.serve``
+              with its defaults (8 requests, 16 new tokens, 4 slots,
+              launch counters set to 0 just before and read just after:
+              the serving path launches none of the kernels), then the
+              same traffic with a per-request ``PhaseEnergyAccountant``
+              (no sample in a model-inner region, per-request energies
+              partition the phases', a J/token quote), ragged batching
+              against each request alone, kill and restore from a
+              snapshot (bit-exact, bf16), and speculative decoding
+              (token-exact to the baseline in float32; measured in bf16).
+              Each kernel's entry of the kernels line carries its
+              ``serve_launches``.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -1719,6 +1732,331 @@ def model_breakdown(m):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the serving engine at full size.
+# ---------------------------------------------------------------------------
+
+# The launcher's defaults: 8 requests, prompts of 4-15 tokens, 16 new
+# tokens each, 4 slots, 256 cache positions.
+SERVE_REQUESTS, SERVE_NEW, SERVE_BATCH, SERVE_LEN = 8, 16, 4, 256
+SERVE_INNER = ("embed", "attn", "attn_decode", "attn_score", "ffn",
+               "lm_head")
+SERVE_SPEC = dict(spec_len=4, spec_window=16, spec_sinks=4)
+# Kill the engine in the second wave of requests (steps 16-31 at 16 new
+# tokens and 4 slots); snapshots every second step, the last at 20.
+SERVE_CRASH_AT = 21
+# Partition of the phase energy over requests: k copies of pow/k sum to
+# pow within a few ulps.
+SERVE_PARTITION_RTOL = 1e-9
+
+
+@contextlib.contextmanager
+def engine_step_times():
+    """Wall ms of every prefill (``Engine._place``: one teacher-forced
+    decode step per prompt token) and every baseline decode step
+    (``Engine._step_baseline``) on any engine while the block runs. Each
+    ends in a host read of the sampled tokens, so its device work is
+    inside. Yields {"prefill": [(ms, steps)], "decode": [(ms, 1)]}."""
+    from repro_torch.serve.engine import Engine
+    times = {"prefill": [], "decode": []}
+    place, base = Engine._place, Engine._step_baseline
+
+    def timed_place(self, req):
+        t0 = time.perf_counter()
+        place(self, req)
+        times["prefill"].append(((time.perf_counter() - t0) * 1e3,
+                                 len(req.prompt)))
+
+    def timed_base(self, step, active):
+        t0 = time.perf_counter()
+        out = base(self, step, active)
+        times["decode"].append(((time.perf_counter() - t0) * 1e3, 1))
+        return out
+
+    Engine._place, Engine._step_baseline = timed_place, timed_base
+    try:
+        yield times
+    finally:
+        Engine._place, Engine._step_baseline = place, base
+
+
+def _ms_per_step(entries):
+    n = sum(k for _, k in entries)
+    return (sum(m for m, _ in entries) / n if n else float("nan")), n
+
+
+def _streams(done):
+    return {r.rid: list(r.out_tokens) for r in done}
+
+
+def serve_phase(dev):
+    """The serving engine (``repro_torch.launch.serve``) on full-size
+    qwen3-1.7b, bf16 compute and cache, random weights from seed 0.
+
+    (a) the launcher's ``main`` with its defaults, launch counters set to
+        0 just before and read just after: every request served, no
+        kernel of the port launched (the engine prefills by teacher-forced
+        decode steps through the plain ``attention_decode``); prints
+        tokens/s, ms per prefill and decode step, peak memory, the host
+        sensor and the share of samples in ``<other>``;
+    (b) the same traffic with a ``PhaseEnergyAccountant(track_requests=
+        True)`` whose marker records every region it is set to: no sample
+        and no marker store in a model-inner region (C6), the per-request
+        energies partition the phase energy of the samples drained while
+        requests were in flight, and ``current_joules_per_token`` quotes;
+    (c) three staggered requests give the tokens each gives alone in an
+        engine of the same shape;
+    (d) speculation (spec_len 4, window 16, sinks 4) token-exact to the
+        baseline in float32 compute and cache; in bf16 the share of equal
+        tokens and the first difference are printed, not checked (the
+        verify's GEMMs have B·L rows, the baseline's B);
+    (e) an engine killed at step ``SERVE_CRASH_AT`` and restored from its
+        last snapshot finishes with the uninterrupted run's tokens, bit
+        for bit, in bf16.
+    Returns the launch counts of (a) and the measurements."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import regions
+    from repro_torch.core.faults import FaultPlan, InjectedCrash
+    from repro_torch.core.sampler import RegionMarker
+    from repro_torch.core.sensors import available_host_sensor
+    from repro_torch.core.streaming import StreamingAggregator
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (Engine, PhaseEnergyAccountant,
+                                          Request, ServeConfig)
+    from repro_torch.serve.recovery import restore_engine
+
+    # (a) the launcher.
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with engine_step_times() as times:
+        done, engine, sess = launcher.main(["--arch", MODEL_ARCH])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    est = sess.estimates()
+    n_tok = sum(len(r.out_tokens) for r in done)
+    check(len(done) == SERVE_REQUESTS and all(r.done for r in done),
+          f"serve: {len(done)}/{SERVE_REQUESTS} requests served")
+    check(n_tok == SERVE_REQUESTS * SERVE_NEW, f"serve: {n_tok} tokens out")
+    check(launches == {"sample_attr_fold": 0, "flash_attention": 0,
+                       "rmsnorm": 0}, f"serve: launches {launches}")
+    pre_ms, pre_n = _ms_per_step(times["prefill"])
+    dec_ms, dec_n = _ms_per_step(times["decode"])
+    other = est.by_name()["<other>"].n_samples if "<other>" in \
+        est.by_name() else 0
+    sensor = type(sess.sampler.sensor).__name__
+    log(f"serve (a): launcher main: served {len(done)}/{SERVE_REQUESTS} "
+        f"requests, {n_tok} tokens in {est.t_exec:.3f} s of serving "
+        f"({n_tok / est.t_exec:.1f} tokens/s; main {main_s:.3f} s with the "
+        f"weights drawn); {engine.step_count} engine steps; prefill "
+        f"{pre_ms:.3f} ms per step ({pre_n} steps), decode {dec_ms:.3f} ms "
+        f"per step ({dec_n} steps); peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; host sensor {sensor} "
+        f"(available_host_sensor: {type(available_host_sensor()).__name__}); "
+        f"{est.n_total} samples, <other> {other / est.n_total:.3f}; "
+        f"launches {launches}")
+    base = _streams(done)
+    cfg, params = engine.cfg, engine.params
+    del engine, done
+    scfg = ServeConfig(max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                       eos_token=-1)
+
+    def traffic():
+        return launcher.make_requests(cfg, SERVE_REQUESTS, SERVE_NEW)
+
+    # (b) accounting.
+    class Recording(RegionMarker):
+        def __init__(self):
+            super().__init__()
+            self.ids = set()
+
+        def set(self, region_id):
+            self.ids.add(region_id)
+            super().set(region_id)
+
+    acct = PhaseEnergyAccountant(track_requests=True)
+    marker = Recording()
+    acct.marker = acct.sampler.marker = marker
+    inflight = StreamingAggregator(1, domains=acct.domains)
+    in_flight = [False]
+    acct_drain, sampler_drain = acct.drain, acct.sampler.drain
+
+    def drain(active_requests=None):
+        in_flight[0] = bool(active_requests)
+        return acct_drain(active_requests=active_requests)
+
+    def drain_samples():
+        rids, pows = sampler_drain()
+        if in_flight[0] and len(rids):
+            n = max(len(regions.registry.names), int(rids.max()) + 1)
+            if n > inflight.num_regions:
+                inflight.grow(n)
+            inflight.update(rids, pows)
+        return rids, pows
+
+    acct.drain, acct.sampler.drain = drain, drain_samples
+    eng = Engine(cfg, params, scfg, accountant=acct, device=dev)
+    with acct:
+        done = eng.run_until_drained(traffic())
+    check(_streams(done) == base, "serve (b): tokens with the accountant "
+          "equal the launcher's")
+    names = regions.registry.names
+    inner = {names.index(n) for n in SERVE_INNER if n in names}
+    counts = acct.agg.counts
+    in_inner = {names[i]: int(counts[i]) for i in inner
+                if i < len(counts) and counts[i]}
+    check(not in_inner, f"serve (b): samples in model-inner regions "
+          f"{in_inner}")
+    check(not marker.ids & inner, f"serve (b): marker set to "
+          f"{sorted(names[i] for i in marker.ids & inner)}")
+    per = acct.request_phase_energy()
+    scale = acct.elapsed / acct.agg.n_total
+    phases = sorted({p for d in per.values() for p in d}
+                    | {names[i] for i in range(inflight.num_regions)
+                       if inflight.counts[i]})
+    worst = 0.0
+    for p in phases:
+        i = names.index(p)
+        want = scale * float(inflight.chan_psum[i].sum())
+        got = sum(d.get(p, 0.0) for d in per.values())
+        err = abs(got - want) / max(abs(want), 1e-300)
+        worst = max(worst, err)
+        check(err <= SERVE_PARTITION_RTOL, f"serve (b): requests' energy "
+              f"in {p} {got:.9g} J vs in-flight phase energy {want:.9g} J")
+    quote = eng.current_joules_per_token()
+    tbl = acct.estimates().table
+    log(f"serve (b): accountant: {acct.agg.n_total} samples, "
+        f"{acct.epoch} drains, sensor {type(acct.sampler.sensor).__name__}; "
+        f"marker stores to {sorted(names[i] for i in marker.ids)}, none in "
+        f"{list(SERVE_INNER)}; per-request energies partition the "
+        f"in-flight phase energy of {phases} (worst rel {worst:.2e}; "
+        f"{1 - inflight.n_total / acct.agg.n_total:.3f} of samples drained "
+        f"with no request in flight); phases J: "
+        + ", ".join(f"{tbl.names[i]} {tbl.e_hat[i]:.4f}"
+                    for i in range(len(tbl)) if tbl.n_samples[i])
+        + f"; J/token {quote.j_per_token:.6g} [{quote.lo:.6g}, "
+        f"{quote.hi:.6g}] (alpha {quote.alpha}) over {quote.tokens} tokens "
+        f"from {list(quote.phases)}: host-sensor energy, not the card's")
+    del eng, acct
+
+    # (c) ragged batching.
+    rscfg = ServeConfig(max_batch=3, max_len=64, eos_token=-1)
+    rng = np.random.default_rng(42)
+    ps = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+          for n in (7, 3, 11)]
+    alone = []
+    for i, p in enumerate(ps):
+        e = Engine(cfg, params, rscfg, device=dev)
+        alone.append(e.run_until_drained(
+            [Request(rid=i, prompt=p.copy(), max_new_tokens=8)])[0]
+            .out_tokens)
+    e = Engine(cfg, params, rscfg, device=dev)
+    reqs = [Request(rid=i, prompt=p.copy(), max_new_tokens=8)
+            for i, p in enumerate(ps)]
+    for k, r in enumerate(reqs):
+        e.add_request(r)
+        for _ in range(2 if k < 2 else 40):
+            e.step()
+            if k == 2 and all(s is None for s in e.slot_req):
+                break
+    check(all(r.done for r in reqs), "serve (c): staggered requests done")
+    check([r.out_tokens for r in reqs] == alone,
+          "serve (c): staggered tokens equal each request alone")
+    log(f"serve (c): 3 staggered requests (prompts 7, 3, 11; 8 new tokens) "
+        f"equal each request alone in an engine of the same shape")
+    del e
+
+    # (e) recovery, bf16.
+    with tempfile.TemporaryDirectory() as snap:
+        eng = Engine(cfg, params, scfg, device=dev,
+                     faults=FaultPlan(seed=7,
+                                      serve_crashes=(SERVE_CRASH_AT,)))
+        for r in traffic():
+            eng.submit(r)
+        before = []
+        try:
+            for _ in range(500):
+                if eng.step_count % 2 == 0:
+                    eng.snapshot(snap)
+                before += eng.step()
+        except InjectedCrash:
+            pass
+        check(eng.step_count == SERVE_CRASH_AT,
+              f"serve (e): killed at step {eng.step_count}")
+        del eng
+        t0 = time.perf_counter()
+        eng = restore_engine(cfg, params, scfg, snap, device=dev)
+        restore_s = time.perf_counter() - t0
+        restored_at = eng.step_count
+        after = eng.run_until_drained([])
+    merged = {**_streams(before), **_streams(after)}
+    check(merged == base, f"serve (e): merged streams of {len(before)} "
+          f"requests before the kill and {len(after)} after the restore "
+          f"equal the uninterrupted run")
+    log(f"serve (e): killed at step {SERVE_CRASH_AT}, restored from the "
+        f"snapshot at step {restored_at} in {restore_s:.3f} s (replay of "
+        f"{sum(len(r.prompt) + len(r.out_tokens) for r in after)} tokens "
+        f"at most); {len(before)} requests done before, {len(after)} after: "
+        f"the merged streams equal the uninterrupted run bit for bit (bf16)")
+    del eng
+
+    # (d) speculation: bf16 measured, float32 checked.
+    def run(cfg_, params_, scfg_):
+        e = Engine(cfg_, params_, scfg_, device=dev)
+        t0 = time.perf_counter()
+        d = e.run_until_drained(traffic())
+        s = time.perf_counter() - t0
+        return _streams(d), e, s
+
+    spec_scfg = ServeConfig(max_batch=SERVE_BATCH, max_len=SERVE_LEN,
+                            eos_token=-1, **SERVE_SPEC)
+    got, e, s = run(cfg, params, spec_scfg)
+    pairs = [(a, b) for rid in base for a, b in zip(got[rid], base[rid])]
+    same = sum(a == b for a, b in pairs) / len(pairs)
+    first = {rid: next((j for j, (a, b) in enumerate(zip(got[rid],
+                                                         base[rid]))
+                        if a != b), None) for rid in base}
+    rep = e.report
+    log(f"serve (d) bf16 (measured, not checked): speculative tokens equal "
+        f"to the baseline {same:.3f}; first difference per request "
+        f"{first}; acceptance {rep.accepted}/{rep.drafted}; "
+        f"{e.step_count} engine steps in {s:.3f} s")
+    del e, params, got
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(compute_dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(0)
+    p32 = M.init_params(g, cfg32, device=dev)
+    base32, e, s0 = run(cfg32, p32, ServeConfig(
+        max_batch=SERVE_BATCH, max_len=SERVE_LEN, eos_token=-1,
+        cache_dtype="float32"))
+    steps0 = e.step_count
+    spec32, e, s1 = run(cfg32, p32, ServeConfig(
+        max_batch=SERVE_BATCH, max_len=SERVE_LEN, eos_token=-1,
+        cache_dtype="float32", **SERVE_SPEC))
+    rep = e.report
+    check(rep.drafted > 0, "serve (d): speculation ran")
+    check(spec32 == base32, "serve (d): float32 speculative tokens equal "
+          "the baseline")
+    log(f"serve (d) float32: speculative tokens equal the baseline "
+        f"({sum(map(len, spec32.values()))} tokens); acceptance "
+        f"{rep.accepted}/{rep.drafted}; baseline {steps0} engine steps in "
+        f"{s0:.3f} s, speculative {e.step_count} in {s1:.3f} s")
+    del e, p32
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prefill_ms=pre_ms, decode_ms=dec_ms,
+                tokens_per_s=n_tok / est.t_exec, peak_bytes=peak,
+                j_per_token=quote.j_per_token)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1772,6 +2110,7 @@ def main():
     model_breakdown(model)
     for k in ("params", "cache"):
         del model[k]
+    serve = serve_phase(dev)
 
     split = fold.pop("split_ms")
     combo_fold.pop("split_ms")
@@ -1790,7 +2129,8 @@ def main():
         name="sample_attr", route="cuda",
         source="src/repro_torch/kernels/sample_attr/sample_attr.cu",
         replaces="src/repro/kernels/sample_attr/sample_attr.py:80",
-        **region_path, paths=[region_path, combo_path]),
+        **region_path, paths=[region_path, combo_path],
+        serve_launches=serve["launches"]["sample_attr_fold"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/"
                     "flash_attention.cu",
@@ -1798,14 +2138,16 @@ def main():
                       "flash_attention.py:89",
              launches=model["launches"]["flash_attention"], **flash_row,
              path=f"{MODEL_ARCH} prefill (one launch per layer); timed at "
-                  f"B=4 H=16 KV=8 S=2048 dh=128 bf16 causal"),
+                  f"B=4 H=16 KV=8 S=2048 dh=128 bf16 causal",
+             serve_launches=serve["launches"]["flash_attention"]),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:35",
              launches=model["launches"]["rmsnorm"], **rmsnorm_row,
              path="not on the model path: the models normalise with "
                   "layers.rmsnorm, as the reference's do; timed at "
-                  "[8192, 2048] bf16")]
+                  "[8192, 2048] bf16",
+             serve_launches=serve["launches"]["rmsnorm"])]
     log(f"kernel share of the full run: "
         f"{full['launches'] * fold['ms'] / 1e3 / full['seconds']:.4f} "
         f"(launches x {fold['timing']} of the fold on the full run's chunk "

@@ -27,6 +27,13 @@ already in order; on a CUDA session the marker is a
 queued on the current CUDA stream, so it fires when the GPU reaches it:
 samples see the region whose device work is running, not the one being
 queued.
+
+:func:`opaque` is the counterpart of a compiled step. The reference runs
+the model's ``region`` calls only while ``jax.jit`` traces a step, so on
+every later call a sample lands in the region around the step (a serving
+phase), never in a layer. The port runs the model eagerly: the serving
+engine runs each step inside ``opaque()``, where a nested ``region`` only
+labels the trace and leaves the marker alone.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from repro_torch.core.sampler import RegionMarker
 from repro_torch.core.stream_marker import StreamMarker
 
 __all__ = ["RegionRegistry", "region", "registry", "profiling_session",
-           "mark_in_jit"]
+           "mark_in_jit", "opaque"]
 
 
 class RegionRegistry:
@@ -122,6 +129,22 @@ def mark_in_jit(name: str, dep=None):
 
 
 _region_stack = threading.local()
+_opaque_depth = threading.local()
+
+
+@contextlib.contextmanager
+def opaque() -> Iterator[None]:
+    """Run a compiled step's body: every :func:`region` entered inside the
+    block, on this thread, labels the trace (``record_function``) and
+    never stores into the marker, as the reference's regions do on every
+    call of a jitted step after its trace. Regions outside the block keep
+    marking."""
+    prev = getattr(_opaque_depth, "n", 0)
+    _opaque_depth.n = prev + 1
+    try:
+        yield
+    finally:
+        _opaque_depth.n = prev
 
 
 @contextlib.contextmanager
@@ -134,7 +157,9 @@ def region(name: str) -> Iterator[int]:
     basic block.
     """
     rid = registry.intern(name)
-    m = _active_marker if not _in_jit_marking else None
+    m = (_active_marker
+         if not (_in_jit_marking or getattr(_opaque_depth, "n", 0))
+         else None)
     if m is not None:
         stack = getattr(_region_stack, "s", None)
         if stack is None:

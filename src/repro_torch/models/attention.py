@@ -230,8 +230,10 @@ def attention_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     y = _merge_heads(p, out)
 
     if write_mask is not None:
-        keep_old = ~write_mask.to(device=dev, dtype=torch.bool)
-        r = rows[keep_old]
-        cache_k[r, :, at[keep_old]] = old_k[keep_old]
-        cache_v[r, :, at[keep_old]] = old_v[keep_old]
+        # Put the False rows' old entries back through a select, not a
+        # boolean index: a boolean index waits for the device to size its
+        # result, which would stall the host once per layer.
+        wm = write_mask.to(device=dev, dtype=torch.bool)[:, None, None, None]
+        cache_k[rows, :, at] = torch.where(wm, cache_k[rows, :, at], old_k)
+        cache_v[rows, :, at] = torch.where(wm, cache_v[rows, :, at], old_v)
     return y, cache_k, cache_v

@@ -12,6 +12,7 @@ kept in float32 (master weights) and are cast at use sites.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -131,12 +132,21 @@ def rope_frequencies(d_head: int, theta: float = 1e4) -> np.ndarray:
                             / d_head))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(d_head: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies` on ``device``, made once per key and
+    shared read-only: a host-to-device copy at every call would hold each
+    decode step's layers to the host."""
+    return torch.from_numpy(rope_frequencies(d_head, theta)).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 1e4) -> torch.Tensor:
     """Rotate interleaved pairs (``0::2``, ``1::2``) in float32.
     x: [B, H, S, d_head] or [B, S, d_head]; positions: [B, S]."""
     d_head = x.shape[-1]
-    freqs = torch.from_numpy(rope_frequencies(d_head, theta)).to(x.device)
+    freqs = _rope_freqs(d_head, theta, x.device)
     angles = positions[..., :, None].to(torch.float32) * freqs  # [B,S,d/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
     if x.ndim == 4:  # insert head axis
