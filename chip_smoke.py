@@ -92,7 +92,20 @@ runs these phases, and fails (non-zero exit) if any check fails:
               snapshot (bit-exact, bf16), and speculative decoding
               (token-exact to the baseline in float32; measured in bf16).
               Each kernel's entry of the kernels line carries its
-              ``serve_launches``.
+              ``serve_launches``;
+8. train    — training (``repro_torch.launch.train``): the launcher at
+              full size with its defaults (B=8 × 512, bf16, remat
+              "full", profiling at 5 ms), 8 steps, launch counters set to
+              0 just before and read just after (the training path
+              launches none of the kernels: none has a gradient); no
+              sample or marker store in a step- or model-inner region
+              (C7); the same steps on the card and on the CPU (reduced,
+              float32, accum_steps 1 and 2, compression); kill and resume
+              bit for bit; fused against plain CE at B=2 × 2048 (loss and
+              peak memory); a gradient through the flash and rmsnorm
+              kernels raises. Prints ms and loss a step, tokens/s and
+              peak memory. Each kernel's entry carries its
+              ``train_launches``.
 
 The line before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a GPU, or without the
@@ -2057,6 +2070,396 @@ def serve_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: training at full size.
+# ---------------------------------------------------------------------------
+
+# The launcher's defaults (src/repro/launch/train.py): B=8 × 512, lr 3e-4,
+# bf16 compute, remat "full", profiling at 5 ms; 8 steps (ckpt_every 10:
+# nothing written).
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 512
+# Regions that take no sample and no marker store when the step runs as
+# the reference's jitted step does (C7): the step's own and the model's.
+TRAIN_INNER = ("fwd_bwd", "grad_compress", "optimizer", "embed", "attn",
+               "attn_score", "ffn", "lm_head", "loss")
+TRAIN_LOSS_RTOL = 1e-5          # card against CPU, float32
+# (b) with compression: the share of elements whose int8 code the card and
+# the CPU may round apart (their residuals then differ by a quantum, not
+# by rounding), after step 1 and, counting every step, after step 3. A
+# fault in the card's compression moves nearly every element.
+TRAIN_FLIP_CAP = {1: 1e-4, 3: 2e-3}
+TRAIN_NOISE_CAP = 1e-3          # (b) without it: the rounding-led share
+FUSED_CE_RTOL = 1e-3            # fused against plain CE, bf16 logits
+FUSED_CE_B, FUSED_CE_S = 2, 2048
+
+
+def _to(tree, dev):
+    """A copy of a train state on ``dev``; parameters require grad."""
+    import torch
+    from repro_torch.tree import tree_map
+    out = tree_map(lambda t: t.detach().to(dev, copy=True), tree)
+    tree_map(lambda t: t.requires_grad_(), out["params"])
+    return out
+
+
+def _train_param_check(what, got, want, noise, lr, lrs):
+    """Parameters within atol 1e-2·lr, except the ``noise`` elements (see
+    ``train_phase`` (b)), which are held to 2·Σlr; returns the worst
+    differences (outside, inside) and the noise count."""
+    worst, worst_noise, n = 0.0, 0.0, 0
+    for a, b, m in zip(got, want, noise):
+        d = (a.detach().cpu() - b.detach().cpu()).abs()
+        n += int(m.sum())
+        worst = max(worst, float(d[~m].max()) if (~m).any() else 0.0)
+        worst_noise = max(worst_noise, float(d[m].max()) if m.any() else 0.0)
+    check(worst <= 1e-2 * lr, f"{what}: parameters {worst:.3g} apart "
+          f"(atol 1e-2·lr = {1e-2 * lr:.3g})")
+    check(worst_noise <= 2 * sum(lrs), f"{what}: rounding-led elements "
+          f"{worst_noise:.3g} apart (2·Σlr = {2 * sum(lrs):.3g})")
+    return worst, worst_noise, n
+
+
+def train_breakdown(state, cfg, dev):
+    """Where a full-size train step's device time goes, from a
+    torch.profiler trace of one more step of the launcher's (B=8 × 512):
+    device ms of the ``fwd_bwd`` and ``optimizer`` regions' spans (the
+    backward's kernels are issued by the autograd thread, not inside the
+    calling thread's range), kernels, the device's busy share and the top
+    kernels. Measures only; checks nothing."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_train_step, opaque_step
+    step = opaque_step(make_train_step(cfg, AdamWConfig(
+        total_steps=TRAIN_STEPS, warmup_steps=5)))
+    b = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH).batch(TRAIN_STEPS)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    spans, n_kern, busy, wall, kern = _trace(lambda: step(state, batch))
+    if busy <= 0:
+        log("train breakdown: device time not measured (the profiler saw "
+            "no device events)")
+        return None
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    opt_ms = spans.get("optimizer", 0.0)
+    log(f"train breakdown, one full-size step (B={TRAIN_BATCH} S="
+        f"{TRAIN_SEQ}): {n_kern} kernels, device busy {busy:.3f} ms of "
+        f"{wall:.3f} ms profiled wall (busy share {busy / wall:.3f}); "
+        f"device spans: fwd_bwd {spans.get('fwd_bwd', 0.0):.3f} ms, "
+        f"optimizer {opt_ms:.3f} ms; top kernels: "
+        + "; ".join(f"{e.key[:48]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.3f} ms" for e in top))
+    return dict(busy_ms=busy, wall_ms=wall, optimizer_ms=opt_ms,
+                kernels=n_kern)
+
+
+def train_phase(dev):
+    """Training (``repro_torch.launch.train``) on the card.
+
+    (a) the launcher at full size with its defaults (qwen3-1.7b, B=8 ×
+        512, bf16, remat "full", profiling at 5 ms), 8 steps; launch
+        counters set to 0 just before and read just after: no kernel of
+        the port launches (neither flash nor rmsnorm has a gradient, and
+        the host session folds on the host). Checks: finite losses, the
+        last below the first, ``opt["step"] == 8``, no sample and no
+        marker store in a step-inner or model-inner region (C7). Prints
+        the parameter count, ms and loss a step, tokens/s over steps 3-8,
+        peak memory and the attribution table.
+    (b) card against CPU: reduced qwen3-1.7b, float32, one initial state
+        drawn on the CPU and copied to the card, 3 steps each for
+        ``accum_steps`` 1 and 2 and with compression: losses within rel
+        1e-5; parameters within atol 1e-2·lr except where the update
+        follows rounding — the CPU run's first gradient below 10·eps
+        (Adam's first update lr·g/(|g|+eps) amplifies it, its sign can
+        flip) and, with compression, an element whose int8 code the two
+        devices round apart in some step (residuals more than 1e-6
+        apart); those within 2·Σlr. Without compression the rounding-led
+        elements are at most 1e-3 of all; with it, the elements whose
+        residuals part are at most 1e-4 of all after step 1 and 2e-3
+        after step 3. The worst differences are printed.
+    (c) kill and resume at reduced size on the card: 4 steps with a
+        checkpoint every 2, a fresh trainer resumes at step 4 and runs to
+        6; its losses at steps 5-6 and its final state equal a straight
+        6-step run bit for bit.
+    (d) fused CE at full size, B=2 × 2048: ``loss_fn`` with ``fuse_ce``
+        True and False agree within rel 1e-3 (bf16 logits); the peak
+        memory of forward plus backward of each is printed, and the
+        fused one must be lower.
+    (e) a gradient through ``attn_impl="flash"`` and through the rmsnorm
+        kernel raises on the card.
+    Returns the launch counts of (a) and the measurements."""
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import regions
+    from repro_torch.core.sampler import RegionMarker
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (init_state, make_train_step,
+                                        opaque_step)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    prev_sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        # (a) the launcher at full size.
+        counters = launch_counters()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as ckdir:
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            result, sess, trainer = launcher.main([
+                "--arch", MODEL_ARCH, "--steps", str(TRAIN_STEPS),
+                "--ckpt-dir", ckdir, "--log-every", "1"])
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+            peak = torch.cuda.max_memory_allocated()
+            state = trainer.state
+            opt_step = int(state["opt"]["step"])
+            # One more step, through the same trainer and step, under a
+            # marker that records every store (C7: the launcher's own
+            # session keeps only the last).
+            stored = []
+
+            class Recording(RegionMarker):
+                def set(self, region_id):
+                    stored.append(regions.registry.name_of(region_id))
+                    super().set(region_id)
+
+            trainer.cfg.total_steps += 1
+            with regions.profiling_session(Recording()):
+                trainer.run()
+            ckpt_files = os.listdir(ckdir)
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        logged = result["metrics"]
+        ms = [m["step_time_s"] * 1e3 for m in logged]
+        losses = [m["loss"] for m in logged]
+        tok_s = (TRAIN_BATCH * TRAIN_SEQ * (TRAIN_STEPS - 2)
+                 / (sum(ms[2:]) / 1e3))
+        est = sess.estimates()
+        by = est.by_name()
+        sampled = {n: by[n].n_samples for n in TRAIN_INNER
+                   if n in by and by[n].n_samples}
+        inner_stored = sorted(set(stored) & set(TRAIN_INNER))
+        check(result["final_step"] == TRAIN_STEPS and len(ms) == TRAIN_STEPS,
+              f"train (a): {result['final_step']} steps")
+        check(all(np.isfinite(losses)), f"train (a): losses {losses}")
+        check(losses[-1] < losses[0], f"train (a): last loss {losses[-1]} "
+              f"not below the first {losses[0]}")
+        check(opt_step == TRAIN_STEPS, f"train (a): opt step {opt_step}")
+        check(ckpt_files == [], f"train (a): checkpoint written "
+              f"{ckpt_files}")
+        check("train_step" in stored, f"train (a): marker stores {stored}")
+        check(not sampled, f"train (a): samples in {sampled}")
+        check(not inner_stored, f"train (a): marker stored {inner_stored}")
+        check(launches == {"sample_attr_fold": 0, "flash_attention": 0,
+                           "rmsnorm": 0}, f"train (a): launches {launches}")
+        log(f"train (a): launcher main: {MODEL_ARCH} {n_params} parameters "
+            f"(float32 masters), B={TRAIN_BATCH} S={TRAIN_SEQ}, "
+            f"{TRAIN_STEPS} steps in {main_s:.3f} s (weights drawn "
+            f"included); ms a step "
+            + " ".join(f"{m:.1f}" for m in ms) + "; loss "
+            + " ".join(f"{l:.4f}" for l in losses)
+            + f"; {tok_s:.1f} tokens/s over steps 3-{TRAIN_STEPS}; peak "
+            f"device memory {peak / 2 ** 30:.2f} GiB; {est.n_total} samples "
+            f"in {sorted(n for n in by if by[n].n_samples)}, none and no "
+            f"marker store in {list(TRAIN_INNER)}; launches {launches}")
+
+        cfg = get_config(MODEL_ARCH)
+        breakdown = train_breakdown(state, cfg, dev)
+
+        # (d) fused CE at full size, on the trained weights.
+        params = state["params"]
+        del trainer, state, result, sess
+        torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab_size,
+                                  (FUSED_CE_B, FUSED_CE_S), generator=g,
+                                  device=dev) for k in ("tokens", "labels")}
+        ce = {}
+        for fuse in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            loss, _ = M.loss_fn(params, cfg, batch, fuse_ce=fuse)
+            fwd_peak = torch.cuda.max_memory_allocated() - base
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            torch.cuda.synchronize()
+            ce[fuse] = (float(loss.detach()),
+                        (time.perf_counter() - t0) * 1e3,
+                        torch.cuda.max_memory_allocated() - base, fwd_peak)
+            del loss, grads
+            torch.cuda.empty_cache()
+        rel = abs(ce[True][0] - ce[False][0]) / abs(ce[False][0])
+        check(rel <= FUSED_CE_RTOL, f"train (d): fused CE {ce[True][0]} vs "
+              f"plain {ce[False][0]} (rel {rel:.2e})")
+        check(ce[True][2] < ce[False][2], f"train (d): fused peak "
+              f"{ce[True][2]} not below plain {ce[False][2]}")
+        gib = [{k: v[i] / 2 ** 30 for k, v in ce.items()} for i in (2, 3)]
+        log(f"train (d): loss_fn at B={FUSED_CE_B} S={FUSED_CE_S}, forward "
+            f"+ backward: fused CE {ce[True][0]:.6f} ({ce[True][1]:.1f} ms, "
+            f"peak {gib[0][True]:.2f} GiB above the weights, forward alone "
+            f"{gib[1][True]:.2f}), plain {ce[False][0]:.6f} "
+            f"({ce[False][1]:.1f} ms, peak {gib[0][False]:.2f} GiB, forward "
+            f"alone {gib[1][False]:.2f}); rel {rel:.2e} (tolerance "
+            f"{FUSED_CE_RTOL}); the float32 gradients (7.57 GiB) are in "
+            f"both peaks")
+        del params, batch
+        torch.cuda.empty_cache()
+
+        # (b) card against CPU, reduced, float32.
+        rcfg = get_config(MODEL_ARCH).reduced().replace(
+            compute_dtype="float32")
+        opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+        data = SyntheticTokens(vocab_size=rcfg.vocab_size, seq_len=64,
+                               global_batch=4)
+        init = init_state(torch.Generator().manual_seed(0), rcfg, opt,
+                          compression=True, device="cpu")
+        for accum, comp in ((1, False), (2, False), (1, True)):
+            cpu = _to({k: v for k, v in init.items()
+                       if comp or k != "residuals"}, "cpu")
+            gpu = _to(cpu, dev)
+            step = make_train_step(rcfg, opt, accum_steps=accum,
+                                   compression=comp)
+            n_el = sum(t.numel() for t in tree_leaves(init["params"]))
+            lrs, worst_l, flips = [], 0.0, []
+            for i in range(3):
+                b = {k: torch.from_numpy(np.ascontiguousarray(v))
+                     for k, v in data.batch(i).items()}
+                cpu, mc = step(cpu, b)
+                gpu, mg = step(gpu, {k: v.to(dev) for k, v in b.items()})
+                lc, lg = float(mc["loss"]), float(mg["loss"])
+                worst_l = max(worst_l, abs(lg - lc) / abs(lc))
+                check(abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc),
+                      f"train (b) accum {accum} compression {comp} step "
+                      f"{i + 1}: loss {lg} on the card, {lc} on the CPU")
+                lrs.append(float(mc["lr"]))
+                if i == 0:
+                    noise = [((m / (1 - opt.b1)).abs() < 10 * opt.eps)
+                             & (m != 0) for m in tree_leaves(cpu["opt"]["mu"])]
+                if comp:
+                    # Residuals within atol 1e-6 except where a code was
+                    # rounded apart; those are counted and capped.
+                    apart = [(a - c.cpu()).abs() > 1e-6 for a, c in
+                             zip(tree_leaves(cpu["residuals"]),
+                                 tree_leaves(gpu["residuals"]))]
+                    noise = [n | d for n, d in zip(noise, apart)]
+                    flipped = apart if i == 0 else [
+                        f | d for f, d in zip(flipped, apart)]
+                    n_flip = sum(int(f.sum()) for f in flipped)
+                    flips.append(n_flip)
+                    cap = TRAIN_FLIP_CAP.get(i + 1)
+                    check(cap is None or n_flip <= cap * n_el,
+                          f"train (b) compression step {i + 1}: residuals "
+                          f"of {n_flip} elements of {n_el} more than 1e-6 "
+                          f"apart (cap {cap})")
+            worst, worst_n, n = _train_param_check(
+                f"train (b) accum {accum} compression {comp}",
+                tree_leaves(gpu["params"]), tree_leaves(cpu["params"]),
+                noise, opt.lr, lrs)
+            check(comp or n <= TRAIN_NOISE_CAP * n_el,
+                  f"train (b) accum {accum}: {n} rounding-led elements of "
+                  f"{n_el} (cap {TRAIN_NOISE_CAP})")
+            log(f"train (b): reduced {MODEL_ARCH} float32, accum_steps "
+                f"{accum}, compression {comp}: 3 steps on the card and on "
+                f"the CPU; losses within rel {worst_l:.2e} (tolerance "
+                f"{TRAIN_LOSS_RTOL}); parameters {worst:.3g} apart (atol "
+                f"1e-2·lr = {1e-2 * opt.lr:.3g}) outside {n} rounding-led "
+                f"elements of {n_el}, those {worst_n:.3g} apart"
+                + (f"; elements whose residuals were ever more than 1e-6 "
+                   f"apart (codes rounded apart), after each step: {flips} "
+                   f"(caps {TRAIN_FLIP_CAP} of the elements after steps 1 "
+                   f"and 3)" if comp else ""))
+        del init, cpu, gpu
+
+        # (c) kill and resume, reduced, bf16 compute, on the card.
+        ccfg = get_config(MODEL_ARCH).reduced()
+        copt = AdamWConfig(total_steps=6)
+        cdata = SyntheticTokens(vocab_size=ccfg.vocab_size, seq_len=64,
+                                global_batch=4)
+
+        def trainer(path, total):
+            st = init_state(torch.Generator(device=dev).manual_seed(0),
+                            ccfg, copt, device=dev)
+            return Trainer(
+                TrainerConfig(total_steps=total, ckpt_dir=path,
+                              ckpt_every=2, log_every=1),
+                opaque_step(make_train_step(ccfg, copt)), st, cdata,
+                put_batch=lambda b: {k: torch.from_numpy(v).to(dev)
+                                     for k, v in b.items()})
+
+        with tempfile.TemporaryDirectory() as tmp:
+            straight = [trainer(os.path.join(tmp, f"s{k}"), 6)
+                        for k in range(2)]
+            runs = [t.run()["metrics"] for t in straight]
+            repeat = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(straight[0].state),
+                tree_leaves(straight[1].state)))
+            trainer(os.path.join(tmp, "k"), 4).run()
+            resumed = trainer(os.path.join(tmp, "k"), 6)
+            check(resumed.try_resume() and resumed.step == 4,
+                  f"train (c): resumed at step {resumed.step}")
+            after = resumed.run()["metrics"]
+        want = [m["loss"] for m in runs[0][4:]]
+        got = [m["loss"] for m in after]
+        check(got == want, f"train (c): losses after the resume {got} vs "
+              f"the straight run's {want}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(resumed.state), tree_leaves(straight[0].state))),
+            "train (c): final state after the resume equals the straight "
+            "run's bit for bit")
+        log(f"train (c): reduced {MODEL_ARCH} bf16 on the card: 4 steps, "
+            f"killed, resumed from the step-4 checkpoint, 2 more: losses "
+            f"{got} and the final state equal a straight 6-step run bit for "
+            f"bit; two straight runs bitwise equal: {repeat}")
+        del straight, resumed
+
+        # (e) gradient refusal on the card.
+        eparams = init_state(torch.Generator(device=dev).manual_seed(0),
+                             ccfg, copt, device=dev)["params"]
+        ebatch = {k: torch.from_numpy(v).to(dev)
+                  for k, v in cdata.batch(0).items()}
+        q = torch.randn(1, 2, 64, 64, device=dev, dtype=torch.bfloat16,
+                        requires_grad=True)
+        x = torch.randn(8, 256, device=dev, requires_grad=True)
+        refused = []
+        for name, fn in (("flash_attention", lambda: flash_attention(
+                              q, q.detach(), q.detach())),
+                         ("rmsnorm", lambda: rmsnorm(
+                              x, torch.ones(256, device=dev))),
+                         ("loss_fn(attn_impl='flash')", lambda: M.loss_fn(
+                              eparams, ccfg, ebatch, attn_impl="flash"))):
+            try:
+                fn()
+            except RuntimeError as e:
+                check("no gradient" in str(e), f"train (e): {name}: {e}")
+                refused.append(name)
+            else:
+                check(False, f"train (e): {name} gave a tensor without a "
+                      f"gradient instead of raising")
+        log(f"train (e): a gradient through {refused} raises on the card")
+    finally:
+        signal.signal(signal.SIGTERM, prev_sigterm)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms=ms, losses=losses, tokens_per_s=tok_s,
+                peak_bytes=peak, n_params=n_params,
+                fused_peak=ce[True][2], plain_peak=ce[False][2],
+                fused_fwd_peak=ce[True][3], plain_fwd_peak=ce[False][3],
+                breakdown=breakdown)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -2111,6 +2514,8 @@ def main():
     for k in ("params", "cache"):
         del model[k]
     serve = serve_phase(dev)
+    with watchdog(600, "train phase"):
+        train = train_phase(dev)
 
     split = fold.pop("split_ms")
     combo_fold.pop("split_ms")
@@ -2130,7 +2535,8 @@ def main():
         source="src/repro_torch/kernels/sample_attr/sample_attr.cu",
         replaces="src/repro/kernels/sample_attr/sample_attr.py:80",
         **region_path, paths=[region_path, combo_path],
-        serve_launches=serve["launches"]["sample_attr_fold"]),
+        serve_launches=serve["launches"]["sample_attr_fold"],
+        train_launches=train["launches"]["sample_attr_fold"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/"
                     "flash_attention.cu",
@@ -2139,7 +2545,8 @@ def main():
              launches=model["launches"]["flash_attention"], **flash_row,
              path=f"{MODEL_ARCH} prefill (one launch per layer); timed at "
                   f"B=4 H=16 KV=8 S=2048 dh=128 bf16 causal",
-             serve_launches=serve["launches"]["flash_attention"]),
+             serve_launches=serve["launches"]["flash_attention"],
+             train_launches=train["launches"]["flash_attention"]),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:35",
@@ -2147,7 +2554,8 @@ def main():
              path="not on the model path: the models normalise with "
                   "layers.rmsnorm, as the reference's do; timed at "
                   "[8192, 2048] bf16",
-             serve_launches=serve["launches"]["rmsnorm"])]
+             serve_launches=serve["launches"]["rmsnorm"],
+             train_launches=train["launches"]["rmsnorm"])]
     log(f"kernel share of the full run: "
         f"{full['launches'] * fold['ms'] / 1e3 / full['seconds']:.4f} "
         f"(launches x {fold['timing']} of the fold on the full run's chunk "

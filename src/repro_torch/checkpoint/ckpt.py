@@ -17,9 +17,9 @@ thread so the train loop continues (write-behind).
 The on-disk format is the JAX package's, byte for byte, so checkpoints
 cross between the two packages in both directions. Trees are nests of
 dicts, lists, tuples and ``None``, flattened in JAX's order (dict keys
-sorted, ``None`` a node with no leaf), and the manifest's ``treedef`` is
-the string JAX writes for the same tree. Leaves are torch tensors (moved
-to the host on save) or numpy arrays. A ``bfloat16`` tensor, which numpy
+sorted, ``None`` a node with no leaf; :mod:`repro_torch.tree`), and the
+manifest's ``treedef`` is the string JAX writes for the same tree.
+Leaves are torch tensors (moved to the host on save) or numpy arrays. A ``bfloat16`` tensor, which numpy
 cannot hold, is written as JAX writes ``bfloat16``: a ``'<V2'`` npy
 payload of the raw 2-byte words, manifest dtype ``"bfloat16"``; restore
 views such a leaf back to ``torch.bfloat16`` where the example leaf is
@@ -52,6 +52,7 @@ import torch
 from repro_torch.core.faults import (CorruptShardError, MissingArtifactError,
                                      TornWriteError, declare_site,
                                      resolve_plan)
+from repro_torch.tree import tree_flatten as _flatten
 
 __all__ = ["save", "restore", "latest_step", "AsyncCheckpointer",
            "write_manifest_dir", "read_manifest_dir", "read_manifest_meta",
@@ -65,85 +66,6 @@ _SITE_MANIFEST_WRITE = declare_site("ckpt.manifest_write")
 _SITE_MANIFEST_READ = declare_site("ckpt.manifest_read")
 
 _BF16 = "bfloat16"
-
-
-# -- trees ---------------------------------------------------------------------
-
-class TreeDef:
-    """The structure of a flattened tree: ``str()`` is JAX's ``PyTreeDef``
-    string for the same tree, :meth:`unflatten` rebuilds it."""
-
-    def __init__(self, node):
-        self._node = node       # "*" | None | ("dict", keys, kids) | (type, kids)
-
-    def __str__(self) -> str:
-        return f"PyTreeDef({_render(self._node)})"
-
-    def unflatten(self, leaves: Sequence[Any]):
-        it = iter(leaves)
-        out = _build(self._node, it)
-        if next(it, _END) is not _END:
-            raise ValueError("more leaves than the tree has")
-        return out
-
-
-_END = object()
-
-
-def _node_of(tree, leaves: list):
-    if tree is None:
-        return None
-    t = type(tree)
-    if t is dict:
-        keys = sorted(tree)                      # JAX's order
-        return ("dict", tuple(keys),
-                tuple(_node_of(tree[k], leaves) for k in keys))
-    if t is list or t is tuple:
-        return (t, tuple(_node_of(v, leaves) for v in tree))
-    if isinstance(tree, (torch.Tensor, np.ndarray, np.generic,
-                         int, float, complex)):
-        leaves.append(tree)
-        return "*"
-    raise TypeError(f"checkpoint trees are nests of dicts, lists, tuples "
-                    f"and None over tensor, array or scalar leaves; got "
-                    f"{t.__name__}")
-
-
-def _render(node) -> str:
-    if node == "*":
-        return "*"
-    if node is None:
-        return "None"
-    if node[0] == "dict":
-        _, keys, kids = node
-        return "{" + ", ".join(f"{k!r}: {_render(c)}"
-                               for k, c in zip(keys, kids)) + "}"
-    t, kids = node
-    body = ", ".join(_render(c) for c in kids)
-    if t is list:
-        return f"[{body}]"
-    return f"({body},)" if len(kids) == 1 else f"({body})"
-
-
-def _build(node, it):
-    if node == "*":
-        leaf = next(it, _END)
-        if leaf is _END:
-            raise ValueError("fewer leaves than the tree has")
-        return leaf
-    if node is None:
-        return None
-    if node[0] == "dict":
-        _, keys, kids = node
-        return {k: _build(c, it) for k, c in zip(keys, kids)}
-    t, kids = node
-    return t(_build(c, it) for c in kids)
-
-
-def _flatten(tree: Any):
-    leaves: list = []
-    treedef = TreeDef(_node_of(tree, leaves))
-    return leaves, treedef
 
 
 # -- leaves --------------------------------------------------------------------

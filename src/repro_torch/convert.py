@@ -5,7 +5,10 @@ device array): timeline substrates, pipeline carries, model parameters
 and KV caches. :func:`tree_to_torch` places such a nest on a torch device
 with its dtypes kept (int32/int64/float64 stay as they are).
 :func:`params_from_jax` and :func:`cache_from_jax` turn the reference
-model's layer-stacked pytrees into the port's per-layer lists.
+model's layer-stacked pytrees into the port's per-layer lists;
+:func:`train_state_from_jax` and :func:`train_state_to_jax` carry a train
+state (parameters, AdamW moments and step, compression residuals) across
+in both directions.
 :func:`resolve_device` is the one rule for where the port's entry points
 run: on the GPU unless the caller asks for the CPU, and never quietly on
 the CPU when the GPU was asked for but is missing.
@@ -18,8 +21,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_leaves, tree_map
+
 __all__ = ["cache_from_jax", "params_from_jax", "resolve_device",
-           "tree_to_torch"]
+           "train_state_from_jax", "train_state_to_jax", "tree_to_torch"]
 
 
 def resolve_device(device) -> torch.device:
@@ -104,3 +109,50 @@ def cache_from_jax(cache, cfg, device="cuda") -> dict:
     ``{"blocks": [{"k", "v"} per layer]}``, dtype kept."""
     return {"blocks": _unstack(tree_to_torch(cache["blocks"], device),
                                cfg.n_layers)}
+
+
+def train_state_from_jax(state, cfg, device="cuda") -> dict:
+    """The reference's train state ``{"params", "opt": {"mu", "nu",
+    "step"}[, "residuals"]}``, as numpy → the port's: every parameter-
+    shaped tree unstacked as :func:`params_from_jax` does, the step an
+    int32 scalar tensor. The parameters require grad, as
+    ``train.step.init_state``'s do."""
+    out = {"params": params_from_jax(state["params"], cfg, device),
+           "opt": {"mu": params_from_jax(state["opt"]["mu"], cfg, device),
+                   "nu": params_from_jax(state["opt"]["nu"], cfg, device),
+                   "step": tree_to_torch(np.asarray(state["opt"]["step"]),
+                                         device)}}
+    if "residuals" in state:
+        out["residuals"] = params_from_jax(state["residuals"], cfg, device)
+    for t in tree_leaves(out["params"]):
+        t.requires_grad_()
+    return out
+
+
+def _stack(layers: list):
+    """A list of per-layer nests → one nest stacked on a leading axis."""
+    if isinstance(layers[0], dict):
+        return {k: _stack([x[k] for x in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
+def _params_to_jax(p, cfg) -> dict:
+    out = tree_map(lambda t: t.detach().to("cpu").numpy(), p)
+    if len(out["blocks"]) != cfg.n_layers:
+        raise ValueError(f"{len(out['blocks'])} blocks, expected "
+                         f"{cfg.n_layers}")
+    out["blocks"] = _stack(out["blocks"])
+    return out
+
+
+def train_state_to_jax(state, cfg) -> dict:
+    """The port's train state → the reference's, as numpy, with the
+    blocks stacked on a leading layer axis (the inverse of
+    :func:`train_state_from_jax`)."""
+    out = {"params": _params_to_jax(state["params"], cfg),
+           "opt": {"mu": _params_to_jax(state["opt"]["mu"], cfg),
+                   "nu": _params_to_jax(state["opt"]["nu"], cfg),
+                   "step": state["opt"]["step"].detach().to("cpu").numpy()}}
+    if "residuals" in state:
+        out["residuals"] = _params_to_jax(state["residuals"], cfg)
+    return out

@@ -16,6 +16,12 @@ the head dim alone: ``"wgmma"`` (tensor cores, TMA loads) for bfloat16
 and float16 at dh 64, 80 and 128, ``"simt"`` (CUDA cores, float32
 arithmetic) for float32 and dh 32. A failed build or launch raises;
 nothing falls back from one route to the other.
+
+There is no backward kernel, as the reference's Pallas kernel has none:
+the wrapper raises when autograd would record it (grad mode on and an
+input that requires grad), on the GPU and the CPU alike, instead of
+returning a tensor whose gradient is silently dropped. Training uses
+``attn_impl="full"``, as the reference's does.
 """
 
 from __future__ import annotations
@@ -122,8 +128,14 @@ def flash_attention(q, k, v, *, causal: bool = True):
     any S and T) or raises. Strided inputs are read in place as long as
     the last axis is contiguous and, on the ``"wgmma"`` route, the base
     and the other strides are multiples of 16 bytes; otherwise they are
-    copied to a contiguous tensor first.
+    copied to a contiguous tensor first. Raises ``RuntimeError`` when
+    autograd would record the call (no gradient, as in the reference).
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no gradient (nor has the reference's "
+            "Pallas kernel); train with attn_impl='full', or call it "
+            "under torch.no_grad()")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":

@@ -6,7 +6,9 @@ tensor on the CPU it runs the plain PyTorch version (:mod:`.ref`).
 ``rmsnorm.launches`` counts the kernel's launches.
 
 The models do not call it: like the reference's, they normalise with
-:func:`repro_torch.models.layers.rmsnorm` (plain PyTorch).
+:func:`repro_torch.models.layers.rmsnorm` (plain PyTorch). There is no
+backward kernel, as the reference's Pallas kernel has none: the wrapper
+raises when autograd would record it, on the GPU and the CPU alike.
 """
 
 from __future__ import annotations
@@ -74,7 +76,14 @@ def _kernel():
 def rmsnorm(x, scale, *, eps: float = 1e-5):
     """x: [..., d]; scale: [d] → [..., d] in x's dtype (float32, bfloat16
     or float16), accumulated in float32. On a CUDA tensor this launches
-    the kernel with the plan of :func:`_plan` or raises."""
+    the kernel with the plan of :func:`_plan` or raises. Raises
+    ``RuntimeError`` when autograd would record the call (no gradient, as
+    in the reference)."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        raise RuntimeError(
+            "rmsnorm kernel has no gradient (nor has the reference's Pallas "
+            "kernel); normalise with models.layers.rmsnorm to train, or "
+            "call it under torch.no_grad()")
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps=eps)
     if x.device.type != "cuda":

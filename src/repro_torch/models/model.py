@@ -1,4 +1,4 @@
-"""Top-level model assembly for the dense family: init / forward /
+"""Top-level model assembly for the dense family: init / forward / loss /
 prefill / cache / decode.
 
 Port of ``src/repro/models/model.py``. The reference stacks the layers on
@@ -8,6 +8,12 @@ a Python loop runs the layers (:func:`repro_torch.convert.params_from_jax`
 unstacks the reference's weights). The other families raise
 ``NotImplementedError`` naming ROADMAP A7.
 
+Training: :func:`loss_fn` (plain or fused chunked lm_head + CE) is what
+``train/step.py`` differentiates. When autograd records, each block runs
+under ``cfg.remat`` (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``); inference (forward, prefill, decode) runs the blocks
+as plain calls.
+
 Entry points run where their tensors live: :func:`init_params` and
 :func:`init_cache` take ``device=`` (the GPU unless the caller asks for
 the CPU), the rest follow the parameters and inputs they are given.
@@ -15,22 +21,81 @@ the CPU), the rest follow the parameters and inputs they are given.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import resolve_device
+from repro_torch.core import regions
 from repro_torch.core.regions import region
 from repro_torch.models import transformer as tb
 from repro_torch.models.layers import (Params, dense_init, embed_init, norm,
                                        norm_init)
+from repro_torch.tree import tree_leaves
 
-__all__ = ["init_params", "cast_params", "forward", "prefill",
-           "init_cache", "decode_step", "decode_verify",
-           "reset_cache_slots"]
+__all__ = ["init_params", "cast_params", "forward", "loss_fn",
+           "cross_entropy", "fused_lm_head_ce", "prefill", "init_cache",
+           "decode_step", "decode_verify", "reset_cache_slots"]
 
 
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+# The matmuls ``remat="dots"`` keeps (``jax.checkpoint_policies.
+# checkpoint_dots`` keeps every dot_general's output).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _recompute(ctx):
+    """A block's recomputation in the backward: ``ctx`` plus
+    ``regions.opaque()``. The reference's regions never mark during a
+    backward (its recomputation is part of the traced graph); the port's
+    recomputation reruns the block's ``region`` calls, on the CUDA
+    autograd thread, where they would otherwise store into the marker."""
+    with ctx, regions.opaque():
+        yield
+
+
+def _contexts(remat: str):
+    if remat == "dots":
+        fwd, rec = create_selective_checkpoint_contexts(_save_dots)
+        return fwd, _recompute(rec)
+    return contextlib.nullcontext(), _recompute(contextlib.nullcontext())
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``: ``"none"`` a plain call, ``"full"``
+    recomputes the whole call in the backward, ``"dots"`` keeps the
+    matmul outputs and recomputes the rest. The model draws no random
+    numbers, so no RNG state is kept for the recomputation."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("dots", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r} (none, dots, full)")
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=lambda: _contexts(cfg.remat))
+    return wrapped
+
+
+def _recording(x: torch.Tensor, p: Params) -> bool:
+    """Whether autograd records a block applied to ``x`` with weights
+    ``p``."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(p)))
 
 
 # ---------------------------------------------------------------------------
@@ -93,11 +158,16 @@ def _embed(p: Params, cfg: ModelConfig, batch: dict):
 def _backbone(p: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, attn_impl: str = "full",
               q_chunk: int = 1024):
-    """All blocks (no embed / final norm / head). Returns (x, aux)."""
+    """All blocks (no embed / final norm / head). Returns (x, aux). Each
+    block runs under ``cfg.remat`` when autograd records it."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for pl in p["blocks"]:
-        x, a = tb.tblock_forward(pl, cfg, x, positions,
-                                 attn_impl=attn_impl, q_chunk=q_chunk)
+        def body(h, pl=pl):
+            return tb.tblock_forward(pl, cfg, h, positions,
+                                     attn_impl=attn_impl, q_chunk=q_chunk)
+        if _recording(x, pl):
+            body = _remat(body, cfg)
+        x, a = body(x)
         aux = aux + a
     return x, aux
 
@@ -112,6 +182,92 @@ def forward(p: Params, cfg: ModelConfig, batch: dict, *,
     with region("lm_head"):
         logits = x @ p["lm_head"].to(x.dtype)
     return logits, aux
+
+
+def _lse_minus_label(logits: torch.Tensor, labels: torch.Tensor):
+    """Per-position ``logsumexp(logits) - logits[label]`` in float32. The
+    max is taken under ``detach`` (the reference's ``stop_gradient``); the
+    label's logit is a gather, which equals the reference's one-hot
+    ``where``-sum (that sum only adds zeros)."""
+    lf = logits.to(torch.float32)
+    m = lf.max(dim=-1, keepdim=True).values.detach()
+    lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
+    ll = torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]
+    return lse - ll
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Stable CE. logits [B,S,V]; labels [B,S]; mask [B,S] (optional)
+    weights the positions: Σ nll·mask / max(Σ mask, 1)."""
+    nll = _lse_minus_label(logits, labels)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _ce_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """CE summed (not meaned) over positions."""
+    return torch.sum(_lse_minus_label(logits, labels))
+
+
+def _chunk_ce_sum(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
+    return _ce_sum(x @ w.to(x.dtype), labels)
+
+
+def fused_lm_head_ce(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     labels: torch.Tensor, *, seq_chunk: int = 512):
+    """lm_head matmul + CE fused over sequence chunks.
+
+    Never materializes the full [B,S,V] logits: each chunk's logits are
+    produced, consumed, and (under ``checkpoint``) recomputed in the
+    backward. The chunk is the largest divisor of S not above
+    ``seq_chunk`` (one chunk of S would bring the full logits back)."""
+    B, S, _ = x.shape
+    if S % seq_chunk != 0:
+        seq_chunk = next((c for c in range(seq_chunk, 0, -1)
+                          if S % c == 0), S)
+    w = p["lm_head"]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, seq_chunk):
+        xi, li = x[:, i:i + seq_chunk], labels[:, i:i + seq_chunk]
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            part = checkpoint(_chunk_ce_sum, xi, w, li, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            part = _chunk_ce_sum(xi, w, li)
+        total = total + part
+    return total / (B * S)
+
+
+def loss_fn(p: Params, cfg: ModelConfig, batch: dict, *,
+            attn_impl: str = "full", ssd_chunk: int = 128,
+            unroll: bool = False, fuse_ce: bool | None = None,
+            q_chunk: int = 1024, ce_chunk: int = 512):
+    """Training loss → (ce + aux, {"ce", "aux"}). ``fuse_ce=None`` fuses
+    the head and CE when there is no ``loss_mask`` and S >= 2048.
+    ``ssd_chunk`` and ``unroll`` are the reference's knobs for other
+    families and for its cost pass; the dense family ignores them."""
+    del ssd_chunk, unroll
+    tb.check_family(cfg)
+    labels = batch["labels"]
+    if fuse_ce is None:
+        fuse_ce = (batch.get("loss_mask") is None
+                   and labels.shape[-1] >= 2048)
+    if fuse_ce:
+        x, positions = _embed(p, cfg, batch)
+        x, aux = _backbone(p, cfg, x, positions, attn_impl=attn_impl,
+                           q_chunk=q_chunk)
+        x = norm(p["final_norm"], x, kind=cfg.norm_kind, eps=cfg.norm_eps)
+        with region("loss"):
+            ce = fused_lm_head_ce(p, cfg, x, labels, seq_chunk=ce_chunk)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    logits, aux = forward(p, cfg, batch, attn_impl=attn_impl,
+                          q_chunk=q_chunk)
+    with region("loss"):
+        ce = cross_entropy(logits, labels, batch.get("loss_mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(p: Params, cfg: ModelConfig, batch: dict, max_len: int, *,
