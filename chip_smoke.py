@@ -51,7 +51,9 @@ runs these phases, and fails (non-zero exit) if any check fails:
               summation order), ``flash_attention`` (the model's prefill
               shape, dh 64 and 80, a ragged length, non-causal, float32,
               a transposed q as the model passes it, S=77, float16,
-              bf16 at dh 32; each with its route and TFLOP/s) and
+              bf16 at dh 32, and the later families' shapes: GQA group
+              7 at dh 64, MHA at dh 80 non-causal, group 8 at dh 128;
+              each with its route and TFLOP/s) and
               ``rmsnorm`` (block-norm and qk-norm shapes, odd widths,
               bfloat16 and float32, each with its launch plan); kernel,
               plain and library-call times and the card's bound for the
@@ -68,7 +70,7 @@ runs these phases, and fails (non-zero exit) if any check fails:
               table capacity, held and timed as in phase 4 (the kernel
               line's second ``sample_attr`` path), and kernels per chunk
               of the combination step;
-6. model    — the dense-transformer serving path at full size:
+6. model    — the dense-transformer path at full size:
               ``qwen3-1.7b`` (28 layers, d_model 2048, random weights from
               a seed) prefills 4 prompts of 2048 tokens through the flash
               kernel (``attn_impl="flash"``, launch counters set to 0
@@ -105,9 +107,23 @@ runs these phases, and fails (non-zero exit) if any check fails:
               peak memory); a gradient through the flash and rmsnorm
               kernels raises. Prints ms and loss a step, tokens/s and
               peak memory. Each kernel's entry carries its
-              ``train_launches``.
+              ``train_launches``;
+9. the moe, vlm and audio families at full width, each path's flash
+   launches counted as above (``moe_launches``, ``moe_serve_launches``,
+   ``moe_train_launches``, ``moe30b_launches``, ``vlm_launches``,
+   ``vlm_serve_launches``, ``audio_launches`` on every kernel's entry):
+   granite-moe-1b-a400m (24 layers, 32 experts top-8) through phases 6-8
+   (prefill + 32 decode steps, the step-1 check at capacity factor E/k;
+   serve with every check; train with every check, card vs CPU counting
+   the tokens whose expert choice rounds apart); qwen3-moe-30b-a3b at
+   full width, depth cut to 8 of 48 layers (prefill + 8 decode steps);
+   internvl2-1b (256 patch embeddings + 1 792 tokens: prefill + 32
+   decode steps; the serve launcher; fused vs plain CE with patches at
+   B=2 × 2048); hubert-xlarge (48 layers, non-causal: forward and
+   loss_fn on B=4 × 2048 frame embeddings, flash vs full).
 
-The line before the last is a JSON object listing every kernel; the last
+Each phase's seconds are printed on a line of their own. The line
+before the last is a JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Without a GPU, or without the
 rest of the repository beside it, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -117,6 +133,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -166,6 +183,14 @@ def watchdog(seconds, what):
         yield
     finally:
         timer.cancel()
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Print the block's seconds on a line of its own."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.2f} s")
 
 
 @contextlib.contextmanager
@@ -401,6 +426,13 @@ FLASH_CASES = [
     ("short", 4, 16, 8, 77, 128, True, "bfloat16", "bhsd"),
     ("fp16", 4, 16, 8, 2048, 128, True, "float16", "bhsd"),
     ("dh32", 4, 16, 8, 2048, 32, True, "bfloat16", "bhsd"),
+    # The later families' prefill shapes, q transposed as the model
+    # passes it: internvl2-1b (GQA group 7), hubert-xlarge (MHA at dh 80,
+    # non-causal), qwen3-moe-30b-a3b (group 8 at dh 128; granite-moe's
+    # 16/8 at dh 64 is "dh64" above).
+    ("gqa7", 4, 14, 2, 2048, 64, True, "bfloat16", "bshd"),
+    ("mha80nc", 4, 16, 16, 2048, 80, False, "bfloat16", "bshd"),
+    ("gqa8", 4, 32, 4, 2048, 128, True, "bfloat16", "bshd"),
 ]
 # [n, d]: block norms [B·S, d_model] and qk-norm [B·H·S, dh] of the
 # model's prefill, then odd widths.
@@ -1531,12 +1563,22 @@ def stream_order_check(prof, kernel_s=0.5, after_s=0.1):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the dense-transformer serving path at full size.
+# Phase 6: the model paths at full width.
 # ---------------------------------------------------------------------------
 
 MODEL_ARCH = "qwen3-1.7b"
 MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_DECODE = 4, 2048, 2080, 32
-MODEL_REGIONS = ("embed", "attn", "ffn", "lm_head")
+MODEL_REGIONS = ("embed", "attn", "ffn", "moe_router", "moe_ffn", "lm_head")
+# The later slices' families, each at full width: granite-moe at full
+# depth; qwen3-moe's 48 layers cut to 8 (its ~3·10^10 parameters are 58 GB
+# in bf16 before the float32 draw they are cast from); internvl2 with its
+# stub ViT's 256 patch embeddings ahead of 1 792 tokens; hubert (an
+# encoder) forward and loss only.
+MOE_ARCH, MOE30_ARCH, VLM_ARCH, AUDIO_ARCH = (
+    "granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "internvl2-1b",
+    "hubert-xlarge")
+MOE30_DEPTH, MOE30_DECODE = 8, 8
+VLM_PATCHES = 256
 
 
 def _max_rel(a, b):
@@ -1545,47 +1587,95 @@ def _max_rel(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def model_phase(dev):
-    """``prefill`` + 32 ``decode_step``s of full-width, full-depth
-    qwen3-1.7b (bf16 compute, random float32 master weights from a seeded
-    generator, held as a bf16 copy). The launch counters are set to 0
-    just before the main path (prefill and decode) and read just after.
+def _model_batch(cfg, B, S, g, dev, patches=0):
+    """Random inputs of S positions: ``patches`` patch embeddings (0.1 ·
+    normal, the stub ViT's output) ahead of S - patches tokens, or frame
+    embeddings for an encoder with precomputed inputs."""
+    import torch
+    if cfg.embed_inputs:
+        return {"embeds": torch.randn(B, S, cfg.d_model, generator=g,
+                                      device=dev)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - patches),
+                                     generator=g, device=dev)}
+    if patches:
+        batch["patch_embeds"] = 0.1 * torch.randn(
+            B, patches, cfg.d_model, generator=g, device=dev)
+    return batch
 
-    Checks: 28 flash launches per prefill (one per layer) and none in
-    decode; finite outputs of the expected shapes; the flash prefill's
+
+def _draw(cfg, dev, seed=0):
+    """Random float32 master weights from ``seed``, held as a copy in the
+    compute dtype; returns (params, count, seconds)."""
+    import torch
+    from repro_torch.models import model as M
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    master = M.init_params(g, cfg, device=dev)
+    p = M.cast_params(master, cfg)
+    del master
+    torch.cuda.synchronize()
+    return p, sum(t.numel() for t in _leaves(p)), time.perf_counter() - t0
+
+
+def model_phase(dev, arch=MODEL_ARCH, *, depth=None, steps=MODEL_DECODE,
+                patches=0):
+    """``prefill`` + ``steps`` greedy ``decode_step``s of ``arch`` at full
+    width (full depth unless ``depth`` cuts it; bf16 compute, random
+    float32 master weights from a seeded generator, held as a bf16 copy;
+    B=4 × 2048 positions, for a VLM ``patches`` of them patch
+    embeddings). The launch counters are set to 0 just before the main
+    path (prefill and decode) and read just after.
+
+    Checks: one flash launch per layer in the prefill and none in decode;
+    finite outputs of the expected shapes; the flash prefill's
     last-position logits and its cache within ``MODEL_REL_TOL`` of
     max |.| of the same prefill through ``attn_impl="full"`` (layer 0's
-    K/V, computed before any attention, bitwise equal); the first decode
-    step's logits within the same share of a prefill of the prompt plus
-    that token. The tolerance: the reference's own kernel-vs-plain bf16
-    spread is 1.0% of max |logit| through 2 layers (0.031 at 3.06); the
-    two attention paths round differently (the kernel rounds p to bf16
-    per 128-key tile before its online rescale, the plain path rounds the
-    normalised probabilities), and the difference compounds through 28
+    K/V, computed before any attention, bitwise equal); unless ``steps``
+    is cut below ``MODEL_DECODE``, the first decode step's logits within
+    the same share of a prefill of the prompt plus that token. A MoE
+    model prefills through the capacity gather, which keeps or drops a
+    token at an expert's capacity boundary by rounding (two attention
+    paths may drop different tokens), and decodes dropless: its checks
+    run on prefills at capacity factor E/k, where the gather drops
+    nothing (as ``tests/test_arch_smoke.py::test_decode_matches_forward``
+    sets it), and the flash-vs-full difference at the config's factor
+    is printed, not checked. Its router chooses among near-equal experts
+    by rounding too, so each compared run replays the expert choices of
+    the run it is compared with (:class:`_Routes`) and the tokens whose
+    own choice would have parted are counted.
+    The tolerance: the reference's own kernel-vs-plain bf16 spread is
+    1.0% of max |logit| through 2 layers (0.031 at 3.06); the two
+    attention paths round differently (the kernel rounds p to bf16 per
+    128-key tile before its online rescale, the plain path rounds the
+    normalised probabilities), and the difference compounds through the
     layers, so 5% is allowed.
     Returns the measurements and the path's launch counts."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import model as M
-    cfg = get_config(MODEL_ARCH)
-    B, S, T, steps = MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_DECODE
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = cfg.replace(n_layers=depth)
+    B, S, T = MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    g = torch.Generator(device=dev).manual_seed(0)
-    master = M.init_params(g, cfg, device=dev)
-    p = M.cast_params(master, cfg)
-    del master
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(p))
-    log(f"model: {MODEL_ARCH} {cfg.n_layers} layers d_model={cfg.d_model} "
-        f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.head_dim} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}: {n_params} parameters "
-        f"drawn and cast to bf16 in {time.perf_counter() - t0:.2f} s")
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
-                           device=dev)
-    batch = {"tokens": tokens}
+    p, n_params, draw_s = _draw(cfg, dev)
+    moe = cfg.family == "moe"
+    cut = (f", depth cut to {depth} of {get_config(arch).n_layers} layers"
+           if depth is not None else "")
+    log(f"model: {arch} {cfg.family} {cfg.n_layers} layers{cut} "
+        f"d_model={cfg.d_model} H={cfg.n_heads} KV={cfg.n_kv_heads} "
+        f"dh={cfg.head_dim} "
+        + (f"experts={cfg.n_experts} top_k={cfg.top_k} moe_d_ff="
+           f"{cfg.moe_d_ff} capacity_factor={cfg.capacity_factor} "
+           if moe else f"d_ff={cfg.d_ff} ")
+        + f"vocab={cfg.vocab_size}: {n_params} parameters drawn and cast "
+        f"to bf16 in {draw_s:.2f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = _model_batch(cfg, B, S, g, dev, patches)
 
     M.prefill(p, cfg, batch, T, attn_impl="flash")       # warm-up
     torch.cuda.synchronize()
@@ -1614,55 +1704,200 @@ def model_phase(dev):
     peak = torch.cuda.max_memory_allocated()
 
     check(after_prefill == cfg.n_layers,
-          f"model: flash launches per prefill {after_prefill} == "
+          f"model {arch}: flash launches per prefill {after_prefill} == "
           f"{cfg.n_layers}")
     check(launches == {"sample_attr_fold": 0, "flash_attention": cfg.n_layers,
                        "rmsnorm": 0},
-          f"model: launches in prefill + decode {launches}")
+          f"model {arch}: launches in prefill + decode {launches}")
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "model: prefill logits")
+          and bool(torch.isfinite(logits).all()),
+          f"model {arch}: prefill logits")
     check(tuple(step_logits.shape) == (B, 1, cfg.vocab_size)
           and bool(torch.isfinite(step_logits).all()),
-          "model: decode logits")
-    check(int(cur_len[0]) == S + steps, "model: cur_len after decode")
+          f"model {arch}: decode logits")
+    check(int(cur_len[0]) == S + steps, f"model {arch}: cur_len after decode")
 
-    full_logits, full_cache, _ = M.prefill(p, cfg, batch, T,
-                                           attn_impl="full")
-    rel = _max_rel(logits, full_logits)
-    check(rel <= MODEL_REL_TOL,
-          f"model: flash vs full prefill logits {rel:.4f} of max |logit|")
-    l0 = cache["blocks"][0]
+    # The checks. A MoE model's capacity gather keeps or drops a token at
+    # an expert's capacity boundary by rounding, so two attention paths
+    # can drop different tokens: at the config's capacity factor the
+    # difference is printed, and the checks run at E/k, where the gather
+    # drops nothing. Its router, too, is discontinuous: where a token's
+    # k-th and (k+1)-th experts are close, the two paths' rounding can
+    # choose another expert, and that token's later hidden states differ
+    # by an expert's output. So the compared run replays the flash run's
+    # expert choices (weighted by its own probabilities) and the two
+    # differ by their attention paths alone; the tokens whose own choice
+    # parted are counted.
+    cap_note = moved_note = ""
+    ccfg, clogits, ccache = cfg, logits, cache
+    if moe:
+        full_logits, _, _ = M.prefill(p, cfg, batch, T, attn_impl="full")
+        cap_note = (f"; at capacity factor {cfg.capacity_factor} (measured, "
+                    f"not checked) {_max_rel(logits, full_logits):.4f}")
+        del full_logits
+        ccfg = cfg.replace(capacity_factor=float(cfg.n_experts / cfg.top_k))
+        with _Routes() as fr:
+            clogits, ccache, _ = M.prefill(p, ccfg, batch, T,
+                                           attn_impl="flash")
+        flash_routes = fr.choices(dev)
+    with _Routes(replay=flash_routes if moe else []) as ur:
+        full_logits, full_cache, _ = M.prefill(p, ccfg, batch, T,
+                                               attn_impl="full")
+    if moe:
+        moved_note = (f"; the full path replays the flash path's expert "
+                      f"choices: its own would part for {ur.note()}")
+    rel = _max_rel(clogits, full_logits)
+    check(rel <= MODEL_REL_TOL, f"model {arch}: flash vs full prefill "
+          f"logits {rel:.4f} of max |logit|")
+    l0 = ccache["blocks"][0]
     check(all(torch.equal(l0[k][:, :, :S], full_cache["blocks"][0][k][:, :, :S])
-              for k in ("k", "v")), "model: layer-0 cache bitwise equal")
+              for k in ("k", "v")), f"model {arch}: layer-0 cache bitwise "
+          f"equal")
     cache_rel = max(_max_rel(c[k][:, :, :S], f[k][:, :, :S])
-                    for c, f in zip(cache["blocks"], full_cache["blocks"])
+                    for c, f in zip(ccache["blocks"], full_cache["blocks"])
                     for k in ("k", "v"))
-    check(cache_rel <= MODEL_REL_TOL,
-          f"model: flash vs full prefill cache {cache_rel:.4f} of max |.|")
-    agree = (logits[:, -1].argmax(-1) == full_logits[:, -1].argmax(-1)
+    check(cache_rel <= MODEL_REL_TOL, f"model {arch}: flash vs full prefill "
+          f"cache {cache_rel:.4f} of max |.|")
+    agree = (clogits[:, -1].argmax(-1) == full_logits[:, -1].argmax(-1)
              ).float().mean().item()
     del full_cache
-    tok0, logits0 = first
-    ext = {"tokens": torch.cat([tokens, tok0], dim=1)}
-    ext_logits, _, _ = M.prefill(p, cfg, ext, T, attn_impl="flash")
-    dec_rel = _max_rel(logits0, ext_logits)
-    check(dec_rel <= MODEL_REL_TOL,
-          f"model: first decode step vs prefill of S+1 tokens "
-          f"{dec_rel:.4f} of max |logit|")
-    log(f"model: flash vs full prefill: logits {rel:.4f} of max |logit| "
+    dec = ""
+    if steps >= MODEL_DECODE:
+        ext_routes = []
+        if moe:
+            tok0 = clogits[:, -1].argmax(-1, keepdim=True)
+            with _Routes() as dr:
+                logits0, _ = M.decode_step(
+                    p, ccfg, tok0, ccache,
+                    torch.full((B,), S, dtype=torch.int32, device=dev))
+            k = cfg.top_k
+            ext_routes = [torch.cat([a.view(B, S, k), b.view(B, 1, k)], 1)
+                          .view(B * (S + 1), k)
+                          for a, b in zip(flash_routes, dr.choices(dev))]
+        else:
+            tok0, logits0 = first
+        ext = dict(batch, tokens=torch.cat([batch["tokens"], tok0], dim=1))
+        with _Routes(replay=ext_routes) as er:
+            ext_logits, _, _ = M.prefill(p, ccfg, ext, T, attn_impl="flash")
+        dec_rel = _max_rel(logits0, ext_logits)
+        check(dec_rel <= MODEL_REL_TOL,
+              f"model {arch}: first decode step vs prefill of S+1 "
+              f"positions {dec_rel:.4f} of max |logit|")
+        dec = (f"; decode step 1 vs prefill of S+1 positions "
+               f"{dec_rel:.4f}"
+               + (f" (the prefill replays the flash prefill's and the "
+                  f"decode step's expert choices; its own would part for "
+                  f"{er.note()})" if moe else ""))
+    del ccache
+    log(f"model {arch}: flash vs full prefill"
+        + (f" at capacity factor {ccfg.capacity_factor} (E/k: nothing "
+           f"dropped)" if moe else "")
+        + f": logits {rel:.4f} of max |logit| "
         f"({full_logits.float().abs().max().item():.3f}), cache "
         f"{cache_rel:.4f} of max |.|, layer-0 K/V bitwise equal, greedy "
-        f"tokens agree on {agree:.2f} of rows (tolerance {MODEL_REL_TOL}); "
-        f"decode step 1 vs prefill of S+1 tokens {dec_rel:.4f}")
-    log(f"model: prefill B={B} S={S} {prefill_s * 1e3:.2f} ms "
-        f"({B * S / prefill_s:.1f} tokens/s), {after_prefill} flash "
-        f"launches; decode {steps} steps {decode_s * 1e3 / steps:.3f} ms "
-        f"per step ({B * steps / decode_s:.1f} tokens/s); peak device "
-        f"memory {peak / 2 ** 30:.2f} GiB; launches in the main path "
-        f"{launches}")
+        f"tokens agree on {agree:.2f} of rows (tolerance {MODEL_REL_TOL})"
+        + moved_note + dec + cap_note)
+    log(f"model {arch}: prefill B={B} S={S}"
+        + (f" ({patches} patch embeddings + {S - patches} tokens)"
+           if patches else "")
+        + f" {prefill_s * 1e3:.2f} ms ({B * S / prefill_s:.1f} tokens/s), "
+        f"{after_prefill} flash launches; decode {steps} steps "
+        f"{decode_s * 1e3 / steps:.3f} ms per step ({B * steps / decode_s:.1f}"
+        f" tokens/s); peak device memory {peak / 2 ** 30:.2f} GiB; launches "
+        f"in the main path {launches}")
     return dict(prefill_ms=prefill_s * 1e3, decode_ms=decode_s * 1e3 / steps,
                 peak_bytes=peak, launches=launches, params=p, cfg=cfg,
                 batch=batch, cache=cache, tok=tok, cur_len=cur_len - 1)
+
+
+def vlm_loss_phase(dev):
+    """Fused against plain CE (:func:`fused_ce_check`) on full-width,
+    full-depth internvl2-1b: float32 master weights from seed 0 that
+    require grad, B=2 × 2048 positions, the first 256 of them patch
+    embeddings (the loss covers the 1 792 text positions)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    cfg = get_config(VLM_ARCH)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = tree_map(lambda t: t.requires_grad_(),
+                      M.init_params(g, cfg, device=dev))
+    batch = _model_batch(cfg, FUSED_CE_B, FUSED_CE_S, g, dev, VLM_PATCHES)
+    batch["labels"] = torch.randint(0, cfg.vocab_size, batch["tokens"].shape,
+                                    generator=g, device=dev)
+    out = fused_ce_check(f"loss {VLM_ARCH}", params, cfg, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+AUDIO_LOSS_RTOL = 5e-3          # flash vs full loss, bf16, 48 layers
+
+
+def audio_phase(dev):
+    """The encoder path: full-width, full-depth hubert-xlarge (48 layers,
+    d 1280, 16/16 heads, dh 80, non-causal, layer norm, gelu; bf16, random
+    weights from seed 0) runs ``forward`` on B=4 × 2048 random frame
+    embeddings through the flash kernel (launch counters set to 0 just
+    before and read just after: 48 launches) against ``attn_impl="full"``
+    (logits within ``MODEL_REL_TOL`` of max |logit|), and ``loss_fn`` with
+    random unit labels through both paths (finite, within rel
+    ``AUDIO_LOSS_RTOL``). Prints forward ms and peak memory."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(AUDIO_ARCH)
+    B, S = MODEL_BATCH, MODEL_PROMPT
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p, n_params, draw_s = _draw(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = _model_batch(cfg, B, S, g, dev)
+    batch["labels"] = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                                    device=dev)
+    with torch.no_grad():
+        M.forward(p, cfg, batch, attn_impl="flash")             # warm-up
+        torch.cuda.synchronize()
+        counters = launch_counters()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        logits, aux = M.forward(p, cfg, batch, attn_impl="flash")
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated()
+        full, _ = M.forward(p, cfg, batch, attn_impl="full")
+        loss = {impl: float(M.loss_fn(p, cfg, batch, attn_impl=impl)[0])
+                for impl in ("flash", "full")}
+    check(launches == {"sample_attr_fold": 0, "flash_attention": cfg.n_layers,
+                       "rmsnorm": 0}, f"audio: launches {launches}")
+    check(tuple(logits.shape) == (B, S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
+          "audio: forward logits")
+    rel = _max_rel(logits, full)
+    check(rel <= MODEL_REL_TOL, f"audio: flash vs full logits {rel:.4f} of "
+          f"max |logit|")
+    lrel = abs(loss["flash"] - loss["full"]) / abs(loss["full"])
+    check(all(map(lambda v: v == v and abs(v) < float("inf"),
+                  loss.values())) and lrel <= AUDIO_LOSS_RTOL,
+          f"audio: loss {loss} (rel {lrel:.2e})")
+    log(f"model {AUDIO_ARCH}: audio encoder {cfg.n_layers} layers "
+        f"d_model={cfg.d_model} H={cfg.n_heads} KV={cfg.n_kv_heads} "
+        f"dh={cfg.head_dim} non-causal, {n_params} parameters drawn in "
+        f"{draw_s:.2f} s; forward B={B} S={S} frame embeddings "
+        f"{fwd_s * 1e3:.2f} ms ({B * S / fwd_s:.1f} frames/s), peak "
+        f"{peak / 2 ** 30:.2f} GiB, launches {launches}; flash vs full "
+        f"logits {rel:.4f} of max |logit| (tolerance {MODEL_REL_TOL}); "
+        f"loss_fn with labels: flash {loss['flash']:.6f}, full "
+        f"{loss['full']:.6f} (rel {lrel:.2e}, tolerance {AUDIO_LOSS_RTOL}; "
+        f"ln V = {math.log(cfg.vocab_size):.4f})")
+    del p, logits, full
+    torch.cuda.empty_cache()
+    return dict(forward_ms=fwd_s * 1e3, peak_bytes=peak, launches=launches)
 
 
 def _leaves(tree):
@@ -1710,8 +1945,9 @@ def model_breakdown(m):
     of one flash prefill and one decode step: device ms by region (attn
     holds ln1, the q/k/v/o projections, qk-norm, rope, the flash kernel
     and the cache write; ffn holds ln2 and the MLP), kernels launched,
-    and the device's busy share. Measures only; checks nothing; a trace
-    with no device events is reported as not measured."""
+    and the device's busy share (a MoE block's FFN is in ``moe_router``
+    and ``moe_ffn``). Measures only; checks nothing; a trace with no
+    device events is reported as not measured."""
     from repro_torch.models import model as M
     p, cfg, batch = m["params"], m["cfg"], m["batch"]
     spans, n_kern, busy, wall, kern = _trace(
@@ -1724,8 +1960,10 @@ def model_breakdown(m):
                 if "fa_wgmma_kernel" in e.key or "fa_fwd_kernel" in e.key
                 ) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    log("model breakdown, one flash prefill: device ms by region "
-        + ", ".join(f"{r} {spans.get(r, 0.0):.3f}" for r in MODEL_REGIONS)
+    log(f"model breakdown {cfg.name}, one flash prefill: device ms by "
+        "region "
+        + ", ".join(f"{r} {spans[r]:.3f}" for r in MODEL_REGIONS
+                    if r in spans)
         + f" (sum {sum(spans.get(r, 0.0) for r in MODEL_REGIONS):.3f}); "
         f"{n_kern} kernels, device busy {busy:.3f} ms of {wall:.3f} ms "
         f"profiled wall (busy share {busy / wall:.3f}); flash kernel "
@@ -1734,9 +1972,9 @@ def model_breakdown(m):
                     f"{e.self_device_time_total / 1e3:.3f} ms" for e in top))
     spans_d, n_kern_d, busy_d, wall_d, _ = _trace(
         lambda: M.decode_step(p, cfg, m["tok"], m["cache"], m["cur_len"]))
-    log(f"model breakdown, one decode step (B={MODEL_BATCH}, cache "
-        f"{MODEL_MAX_LEN}): {n_kern_d} kernels, device busy {busy_d:.3f} "
-        f"ms of {wall_d:.3f} ms profiled wall (busy share "
+    log(f"model breakdown {cfg.name}, one decode step (B={MODEL_BATCH}, "
+        f"cache {MODEL_MAX_LEN}): {n_kern_d} kernels, device busy "
+        f"{busy_d:.3f} ms of {wall_d:.3f} ms profiled wall (busy share "
         f"{busy_d / wall_d:.3f}); device ms by region "
         + ", ".join(f"{r} {v:.3f}" for r, v in sorted(spans_d.items())))
     return dict(prefill_region_ms=spans, prefill_busy_ms=busy,
@@ -1752,7 +1990,7 @@ def model_breakdown(m):
 # tokens each, 4 slots, 256 cache positions.
 SERVE_REQUESTS, SERVE_NEW, SERVE_BATCH, SERVE_LEN = 8, 16, 4, 256
 SERVE_INNER = ("embed", "attn", "attn_decode", "attn_score", "ffn",
-               "lm_head")
+               "moe_router", "moe_ffn", "lm_head")
 SERVE_SPEC = dict(spec_len=4, spec_window=16, spec_sinks=4)
 # Kill the engine in the second wave of requests (steps 16-31 at 16 new
 # tokens and 4 slots); snapshots every second step, the last at 20.
@@ -1801,9 +2039,10 @@ def _streams(done):
     return {r.rid: list(r.out_tokens) for r in done}
 
 
-def serve_phase(dev):
-    """The serving engine (``repro_torch.launch.serve``) on full-size
-    qwen3-1.7b, bf16 compute and cache, random weights from seed 0.
+def serve_phase(dev, arch=MODEL_ARCH, *, full=True):
+    """The serving engine (``repro_torch.launch.serve``) on ``arch`` at
+    full size, bf16 compute and cache, random weights from seed 0; with
+    ``full`` False only (a).
 
     (a) the launcher's ``main`` with its defaults, launch counters set to
         0 just before and read just after: every request served, no
@@ -1841,15 +2080,17 @@ def serve_phase(dev):
                                           Request, ServeConfig)
     from repro_torch.serve.recovery import restore_engine
 
+    tag = f"serve {arch}"
     # (a) the launcher.
     counters = launch_counters()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
     with engine_step_times() as times:
-        done, engine, sess = launcher.main(["--arch", MODEL_ARCH])
+        done, engine, sess = launcher.main(["--arch", arch])
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
@@ -1857,16 +2098,22 @@ def serve_phase(dev):
     est = sess.estimates()
     n_tok = sum(len(r.out_tokens) for r in done)
     check(len(done) == SERVE_REQUESTS and all(r.done for r in done),
-          f"serve: {len(done)}/{SERVE_REQUESTS} requests served")
-    check(n_tok == SERVE_REQUESTS * SERVE_NEW, f"serve: {n_tok} tokens out")
+          f"serve {arch}: {len(done)}/{SERVE_REQUESTS} requests served")
+    check(n_tok == SERVE_REQUESTS * SERVE_NEW,
+          f"serve {arch}: {n_tok} tokens out")
     check(launches == {"sample_attr_fold": 0, "flash_attention": 0,
-                       "rmsnorm": 0}, f"serve: launches {launches}")
+                       "rmsnorm": 0}, f"serve {arch}: launches {launches}")
+    by = est.by_name()
+    sampled = {n: by[n].n_samples for n in SERVE_INNER
+               if n in by and by[n].n_samples}
+    check(not sampled, f"{tag} (a): samples in {sampled}")
     pre_ms, pre_n = _ms_per_step(times["prefill"])
     dec_ms, dec_n = _ms_per_step(times["decode"])
     other = est.by_name()["<other>"].n_samples if "<other>" in \
         est.by_name() else 0
     sensor = type(sess.sampler.sensor).__name__
-    log(f"serve (a): launcher main: served {len(done)}/{SERVE_REQUESTS} "
+    log(f"{tag} (a): launcher main: served {len(done)}/"
+        f"{SERVE_REQUESTS} "
         f"requests, {n_tok} tokens in {est.t_exec:.3f} s of serving "
         f"({n_tok / est.t_exec:.1f} tokens/s; main {main_s:.3f} s with the "
         f"weights drawn); {engine.step_count} engine steps; prefill "
@@ -1874,11 +2121,17 @@ def serve_phase(dev):
         f"per step ({dec_n} steps); peak device memory "
         f"{peak / 2 ** 30:.2f} GiB; host sensor {sensor} "
         f"(available_host_sensor: {type(available_host_sensor()).__name__}); "
-        f"{est.n_total} samples, <other> {other / est.n_total:.3f}; "
-        f"launches {launches}")
+        f"{est.n_total} samples, <other> {other / est.n_total:.3f}, none "
+        f"in a model-inner region; launches {launches}")
+    result = dict(launches=launches, prefill_ms=pre_ms, decode_ms=dec_ms,
+                  tokens_per_s=n_tok / est.t_exec, peak_bytes=peak)
     base = _streams(done)
     cfg, params = engine.cfg, engine.params
     del engine, done
+    if not full:
+        del params
+        torch.cuda.empty_cache()
+        return result
     scfg = ServeConfig(max_batch=SERVE_BATCH, max_len=SERVE_LEN,
                        eos_token=-1)
 
@@ -1919,16 +2172,16 @@ def serve_phase(dev):
     eng = Engine(cfg, params, scfg, accountant=acct, device=dev)
     with acct:
         done = eng.run_until_drained(traffic())
-    check(_streams(done) == base, "serve (b): tokens with the accountant "
+    check(_streams(done) == base, f"{tag} (b): tokens with the accountant "
           "equal the launcher's")
     names = regions.registry.names
     inner = {names.index(n) for n in SERVE_INNER if n in names}
     counts = acct.agg.counts
     in_inner = {names[i]: int(counts[i]) for i in inner
                 if i < len(counts) and counts[i]}
-    check(not in_inner, f"serve (b): samples in model-inner regions "
+    check(not in_inner, f"{tag} (b): samples in model-inner regions "
           f"{in_inner}")
-    check(not marker.ids & inner, f"serve (b): marker set to "
+    check(not marker.ids & inner, f"{tag} (b): marker set to "
           f"{sorted(names[i] for i in marker.ids & inner)}")
     per = acct.request_phase_energy()
     scale = acct.elapsed / acct.agg.n_total
@@ -1942,11 +2195,11 @@ def serve_phase(dev):
         got = sum(d.get(p, 0.0) for d in per.values())
         err = abs(got - want) / max(abs(want), 1e-300)
         worst = max(worst, err)
-        check(err <= SERVE_PARTITION_RTOL, f"serve (b): requests' energy "
+        check(err <= SERVE_PARTITION_RTOL, f"{tag} (b): requests' energy "
               f"in {p} {got:.9g} J vs in-flight phase energy {want:.9g} J")
     quote = eng.current_joules_per_token()
     tbl = acct.estimates().table
-    log(f"serve (b): accountant: {acct.agg.n_total} samples, "
+    log(f"{tag} (b): accountant: {acct.agg.n_total} samples, "
         f"{acct.epoch} drains, sensor {type(acct.sampler.sensor).__name__}; "
         f"marker stores to {sorted(names[i] for i in marker.ids)}, none in "
         f"{list(SERVE_INNER)}; per-request energies partition the "
@@ -1980,10 +2233,10 @@ def serve_phase(dev):
             e.step()
             if k == 2 and all(s is None for s in e.slot_req):
                 break
-    check(all(r.done for r in reqs), "serve (c): staggered requests done")
+    check(all(r.done for r in reqs), f"{tag} (c): staggered requests done")
     check([r.out_tokens for r in reqs] == alone,
-          "serve (c): staggered tokens equal each request alone")
-    log(f"serve (c): 3 staggered requests (prompts 7, 3, 11; 8 new tokens) "
+          f"{tag} (c): staggered tokens equal each request alone")
+    log(f"{tag} (c): 3 staggered requests (prompts 7, 3, 11; 8 new tokens) "
         f"equal each request alone in an engine of the same shape")
     del e
 
@@ -2003,7 +2256,7 @@ def serve_phase(dev):
         except InjectedCrash:
             pass
         check(eng.step_count == SERVE_CRASH_AT,
-              f"serve (e): killed at step {eng.step_count}")
+              f"{tag} (e): killed at step {eng.step_count}")
         del eng
         t0 = time.perf_counter()
         eng = restore_engine(cfg, params, scfg, snap, device=dev)
@@ -2011,10 +2264,10 @@ def serve_phase(dev):
         restored_at = eng.step_count
         after = eng.run_until_drained([])
     merged = {**_streams(before), **_streams(after)}
-    check(merged == base, f"serve (e): merged streams of {len(before)} "
+    check(merged == base, f"{tag} (e): merged streams of {len(before)} "
           f"requests before the kill and {len(after)} after the restore "
           f"equal the uninterrupted run")
-    log(f"serve (e): killed at step {SERVE_CRASH_AT}, restored from the "
+    log(f"{tag} (e): killed at step {SERVE_CRASH_AT}, restored from the "
         f"snapshot at step {restored_at} in {restore_s:.3f} s (replay of "
         f"{sum(len(r.prompt) + len(r.out_tokens) for r in after)} tokens "
         f"at most); {len(before)} requests done before, {len(after)} after: "
@@ -2038,7 +2291,7 @@ def serve_phase(dev):
                                                          base[rid]))
                         if a != b), None) for rid in base}
     rep = e.report
-    log(f"serve (d) bf16 (measured, not checked): speculative tokens equal "
+    log(f"{tag} (d) bf16 (measured, not checked): speculative tokens equal "
         f"to the baseline {same:.3f}; first difference per request "
         f"{first}; acceptance {rep.accepted}/{rep.drafted}; "
         f"{e.step_count} engine steps in {s:.3f} s")
@@ -2055,18 +2308,16 @@ def serve_phase(dev):
         max_batch=SERVE_BATCH, max_len=SERVE_LEN, eos_token=-1,
         cache_dtype="float32", **SERVE_SPEC))
     rep = e.report
-    check(rep.drafted > 0, "serve (d): speculation ran")
-    check(spec32 == base32, "serve (d): float32 speculative tokens equal "
+    check(rep.drafted > 0, f"{tag} (d): speculation ran")
+    check(spec32 == base32, f"{tag} (d): float32 speculative tokens equal "
           "the baseline")
-    log(f"serve (d) float32: speculative tokens equal the baseline "
+    log(f"{tag} (d) float32: speculative tokens equal the baseline "
         f"({sum(map(len, spec32.values()))} tokens); acceptance "
         f"{rep.accepted}/{rep.drafted}; baseline {steps0} engine steps in "
         f"{s0:.3f} s, speculative {e.step_count} in {s1:.3f} s")
     del e, p32
     torch.cuda.empty_cache()
-    return dict(launches=launches, prefill_ms=pre_ms, decode_ms=dec_ms,
-                tokens_per_s=n_tok / est.t_exec, peak_bytes=peak,
-                j_per_token=quote.j_per_token)
+    return dict(result, j_per_token=quote.j_per_token)
 
 
 # ---------------------------------------------------------------------------
@@ -2080,7 +2331,8 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 512
 # Regions that take no sample and no marker store when the step runs as
 # the reference's jitted step does (C7): the step's own and the model's.
 TRAIN_INNER = ("fwd_bwd", "grad_compress", "optimizer", "embed", "attn",
-               "attn_score", "ffn", "lm_head", "loss")
+               "attn_score", "ffn", "moe_router", "moe_ffn", "lm_head",
+               "loss")
 TRAIN_LOSS_RTOL = 1e-5          # card against CPU, float32
 # (b) with compression: the share of elements whose int8 code the card and
 # the CPU may round apart (their residuals then differ by a quantum, not
@@ -2088,6 +2340,15 @@ TRAIN_LOSS_RTOL = 1e-5          # card against CPU, float32
 # fault in the card's compression moves nearly every element.
 TRAIN_FLIP_CAP = {1: 1e-4, 3: 2e-3}
 TRAIN_NOISE_CAP = 1e-3          # (b) without it: the rounding-led share
+# (b), moe: the share of a step's routed tokens whose expert choice the
+# card and the CPU may round apart (float32 router, TF32 off).
+TRAIN_ROUTE_FLIP_CAP = 1e-3
+# (b), moe: an element whose gradient in some step differs between the
+# card and the CPU by more than this share of it is rounding-led (its
+# gradient is a cancellation of larger terms), and their share is capped
+# at TRAIN_MOE_NOISE_CAP (see train_phase).
+TRAIN_GRAD_ROUND_RTOL = 1e-2
+TRAIN_MOE_NOISE_CAP = 1e-2
 FUSED_CE_RTOL = 1e-3            # fused against plain CE, bf16 logits
 FUSED_CE_B, FUSED_CE_S = 2, 2048
 
@@ -2116,6 +2377,151 @@ def _train_param_check(what, got, want, noise, lr, lrs):
     check(worst_noise <= 2 * sum(lrs), f"{what}: rounding-led elements "
           f"{worst_noise:.3g} apart (2·Σlr = {2 * sum(lrs):.3g})")
     return worst, worst_noise, n
+
+
+class _Routes:
+    """While active, records each MoE router call's router weight and
+    expert choice, by device (``calls``); or, given ``replay`` (one
+    [T, k] expert choice per call, in call order), hands each call those
+    experts instead, weighted by the call's own router probabilities, and
+    records which tokens' own choice would have parted (``parted``)."""
+
+    def __init__(self, replay=None):
+        self.replay, self.calls, self.parted = replay, {}, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.mod, self.orig = moe, moe.router
+
+        def rec(p, cfg, x):
+            top_p, top_i, aux = self.orig(p, cfg, x)
+            if self.replay is None:
+                self.calls.setdefault(x.device.type, []).append(
+                    (p["router"].data_ptr(), top_i.detach()))
+                return top_p, top_i, aux
+            want = self.replay[len(self.parted)]
+            self.parted.append((top_i.sort(-1).values
+                                != want.sort(-1).values).any(-1))
+            probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+            w = torch.gather(probs, -1, want)
+            return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), \
+                want, aux
+        moe.router = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.router = self.orig
+
+    def choices(self, dev):
+        """The recorded expert choices on ``dev``, in call order."""
+        return [t for _, t in self.calls.get(dev.type, [])]
+
+    def note(self):
+        """The replay's parted tokens: a count per call and the share of
+        the tokens parted at some call."""
+        ever = self.parted[0].clone()
+        for m in self.parted[1:]:
+            ever |= m
+        return (f"{[int(m.sum()) for m in self.parted]} tokens a layer, "
+                f"{ever.float().mean().item():.4f} of the tokens at some "
+                f"layer (measured, not checked)")
+
+    def compare(self, cpu_params):
+        """The calls since the last compare, the CPU's against the card's
+        in order: (tokens routed apart, tokens routed, {(layer, expert)}
+        the ones routed apart chose on either side)."""
+        cpu, card = self.calls.pop("cpu", []), self.calls.pop("cuda", [])
+        check(len(cpu) == len(card), f"router calls: {len(cpu)} on the "
+              f"CPU, {len(card)} on the card")
+        layer = {b["moe"]["router"].data_ptr(): i
+                 for i, b in enumerate(cpu_params["blocks"]) if "moe" in b}
+        moved, n_tok, touched = 0, 0, set()
+        for (w, a), (_, b) in zip(cpu, card):
+            a, b = a.sort(-1).values, b.cpu().sort(-1).values
+            n_tok += len(a)
+            for r in (a != b).any(-1).nonzero().flatten().tolist():
+                moved += 1
+                touched |= {(layer[w], e) for e in
+                            set(a[r].tolist()) ^ set(b[r].tolist())}
+        return moved, n_tok, touched
+
+
+def _expert_masks(params, touched):
+    """Per leaf of ``params`` (``tree_leaves`` order): True on the
+    elements of the (layer, expert) pairs in ``touched`` (the expert's
+    up/gate/down slices and its router column)."""
+    import torch
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                walk(v, path + (i,))
+        else:
+            m = torch.zeros(t.shape, dtype=torch.bool)
+            if len(path) == 4 and path[0] == "blocks" and path[2] == "moe":
+                for layer, e in touched:
+                    if layer == path[1]:
+                        if path[3] == "router":
+                            m[:, e] = True
+                        else:
+                            m[e] = True
+            out.append(m)
+    walk(params, ())
+    return out
+
+
+def fused_ce_check(what, params, cfg, batch, *, peak="backward"):
+    """``loss_fn`` forward + backward with ``fuse_ce`` True and False on
+    float32 master weights that require grad: losses within rel
+    ``FUSED_CE_RTOL`` (bf16 logits), and the fused peak below the plain
+    one: of forward + backward, or with ``peak="forward"`` of the
+    forward alone (where the [B,S,V] logits are smaller than what the
+    backward holds anyway: the fused CE saves only in the forward).
+    Prints loss, ms and peak memory of each (forward alone too) and the
+    float32 gradients' size, which both backward peaks hold."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    ce = {}
+    for fuse in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _ = M.loss_fn(params, cfg, batch, fuse_ce=fuse)
+        fwd_peak = torch.cuda.max_memory_allocated() - base
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        torch.cuda.synchronize()
+        ce[fuse] = (float(loss.detach()), (time.perf_counter() - t0) * 1e3,
+                    torch.cuda.max_memory_allocated() - base, fwd_peak)
+        del loss, grads
+        torch.cuda.empty_cache()
+    rel = abs(ce[True][0] - ce[False][0]) / abs(ce[False][0])
+    gib = [{k: v[i] / 2 ** 30 for k, v in ce.items()} for i in (2, 3)]
+    grad_gib = sum(t.numel() for t in tree_leaves(params)) * 4 / 2 ** 30
+    B, S = batch["labels"].shape
+    patches = (f" behind {batch['patch_embeds'].shape[1]} patch embeddings"
+               if "patch_embeds" in batch else "")
+    log(f"{what}: {cfg.name} loss_fn at B={B} S={S} labelled{patches}, "
+        f"forward + backward: fused CE {ce[True][0]:.6f} ({ce[True][1]:.1f} "
+        f"ms, peak {gib[0][True]:.2f} GiB above the weights, forward alone "
+        f"{gib[1][True]:.2f}), plain {ce[False][0]:.6f} ({ce[False][1]:.1f} "
+        f"ms, peak {gib[0][False]:.2f} GiB, forward alone "
+        f"{gib[1][False]:.2f}); rel {rel:.2e} (tolerance {FUSED_CE_RTOL}); "
+        f"the float32 gradients ({grad_gib:.2f} GiB) are in both peaks; "
+        f"the {peak} peaks are checked")
+    check(rel <= FUSED_CE_RTOL, f"{what}: fused CE {ce[True][0]} vs plain "
+          f"{ce[False][0]} (rel {rel:.2e})")
+    i = 2 if peak == "backward" else 3
+    check(ce[True][i] < ce[False][i], f"{what}: fused {peak} peak "
+          f"{ce[True][i]} not below plain {ce[False][i]}")
+    return dict(fused_peak=ce[True][2], plain_peak=ce[False][2],
+                fused_fwd_peak=ce[True][3], plain_fwd_peak=ce[False][3])
 
 
 def train_breakdown(state, cfg, dev):
@@ -2152,11 +2558,12 @@ def train_breakdown(state, cfg, dev):
                 kernels=n_kern)
 
 
-def train_phase(dev):
+def train_phase(dev, arch=MODEL_ARCH):
     """Training (``repro_torch.launch.train``) on the card.
 
-    (a) the launcher at full size with its defaults (qwen3-1.7b, B=8 ×
-        512, bf16, remat "full", profiling at 5 ms), 8 steps; launch
+    (a) the launcher at full size with its defaults (``arch``: dense
+        qwen3-1.7b or moe granite-moe-1b-a400m; B=8 × 512, bf16, remat
+        "full", profiling at 5 ms), 8 steps; launch
         counters set to 0 just before and read just after: no kernel of
         the port launches (neither flash nor rmsnorm has a gradient, and
         the host session folds on the host). Checks: finite losses, the
@@ -2164,7 +2571,7 @@ def train_phase(dev):
         marker store in a step-inner or model-inner region (C7). Prints
         the parameter count, ms and loss a step, tokens/s over steps 3-8,
         peak memory and the attribution table.
-    (b) card against CPU: reduced qwen3-1.7b, float32, one initial state
+    (b) card against CPU: reduced ``arch``, float32, one initial state
         drawn on the CPU and copied to the card, 3 steps each for
         ``accum_steps`` 1 and 2 and with compression: losses within rel
         1e-5; parameters within atol 1e-2·lr except where the update
@@ -2175,7 +2582,23 @@ def train_phase(dev):
         apart); those within 2·Σlr. Without compression the rounding-led
         elements are at most 1e-3 of all; with it, the elements whose
         residuals part are at most 1e-4 of all after step 1 and 2e-3
-        after step 3. The worst differences are printed.
+        after step 3. The worst differences are printed. A MoE router
+        whose float32 probabilities round apart can choose another
+        expert for a token: the tokens routed apart are counted (at
+        most ``TRAIN_ROUTE_FLIP_CAP`` of the routed tokens), printed, and
+        the experts they touch (those experts' up/gate/down and router
+        column in that layer) count as rounding-led from then on. In a
+        MoE model an expert's gradient sums over the few tokens routed to
+        it, and many more elements get a gradient that is a cancellation
+        of larger terms, at any step: measured on reduced granite-moe
+        (accum 2), a step-2 gradient of 1.77e-7 on the CPU and 1.86e-7 on
+        the card turned Adam's update -0.026 into 0.0001 (7.95e-6 apart,
+        2.6·atol). So for moe an element whose gradient in some step (from
+        each device's first moment) differs between the two by more than
+        ``TRAIN_GRAD_ROUND_RTOL`` of it is rounding-led too, and the
+        rounding-led elements are capped at ``TRAIN_MOE_NOISE_CAP`` of
+        all (measured 6.3e-4 at accum 1, 2.9e-3 at accum 2; a fault moves
+        nearly every element).
     (c) kill and resume at reduced size on the card: 4 steps with a
         checkpoint every 2, a fresh trainer resumes at step 4 and runs to
         6; its losses at steps 5-6 and its final state equal a straight
@@ -2183,7 +2606,9 @@ def train_phase(dev):
     (d) fused CE at full size, B=2 × 2048: ``loss_fn`` with ``fuse_ce``
         True and False agree within rel 1e-3 (bf16 logits); the peak
         memory of forward plus backward of each is printed, and the
-        fused one must be lower.
+        fused one must be lower (for granite-moe, whose [B,S,V] logits,
+        at vocab 49 155, are smaller than what its backward holds
+        anyway, the forward's peak).
     (e) a gradient through ``attn_impl="flash"`` and through the rmsnorm
         kernel raises on the card.
     Returns the launch counts of (a) and the measurements."""
@@ -2206,6 +2631,7 @@ def train_phase(dev):
     from repro_torch.train.trainer import Trainer, TrainerConfig
     from repro_torch.tree import tree_leaves
 
+    tag = f"train {arch}"
     prev_sigterm = signal.getsignal(signal.SIGTERM)
     try:
         # (a) the launcher at full size.
@@ -2218,7 +2644,7 @@ def train_phase(dev):
                 c.launches = 0
             t0 = time.perf_counter()
             result, sess, trainer = launcher.main([
-                "--arch", MODEL_ARCH, "--steps", str(TRAIN_STEPS),
+                "--arch", arch, "--steps", str(TRAIN_STEPS),
                 "--ckpt-dir", ckdir, "--log-every", "1"])
             torch.cuda.synchronize()
             main_s = time.perf_counter() - t0
@@ -2252,19 +2678,19 @@ def train_phase(dev):
                    if n in by and by[n].n_samples}
         inner_stored = sorted(set(stored) & set(TRAIN_INNER))
         check(result["final_step"] == TRAIN_STEPS and len(ms) == TRAIN_STEPS,
-              f"train (a): {result['final_step']} steps")
-        check(all(np.isfinite(losses)), f"train (a): losses {losses}")
-        check(losses[-1] < losses[0], f"train (a): last loss {losses[-1]} "
+              f"{tag} (a): {result['final_step']} steps")
+        check(all(np.isfinite(losses)), f"{tag} (a): losses {losses}")
+        check(losses[-1] < losses[0], f"{tag} (a): last loss {losses[-1]} "
               f"not below the first {losses[0]}")
-        check(opt_step == TRAIN_STEPS, f"train (a): opt step {opt_step}")
-        check(ckpt_files == [], f"train (a): checkpoint written "
+        check(opt_step == TRAIN_STEPS, f"{tag} (a): opt step {opt_step}")
+        check(ckpt_files == [], f"{tag} (a): checkpoint written "
               f"{ckpt_files}")
-        check("train_step" in stored, f"train (a): marker stores {stored}")
-        check(not sampled, f"train (a): samples in {sampled}")
-        check(not inner_stored, f"train (a): marker stored {inner_stored}")
+        check("train_step" in stored, f"{tag} (a): marker stores {stored}")
+        check(not sampled, f"{tag} (a): samples in {sampled}")
+        check(not inner_stored, f"{tag} (a): marker stored {inner_stored}")
         check(launches == {"sample_attr_fold": 0, "flash_attention": 0,
-                           "rmsnorm": 0}, f"train (a): launches {launches}")
-        log(f"train (a): launcher main: {MODEL_ARCH} {n_params} parameters "
+                           "rmsnorm": 0}, f"{tag} (a): launches {launches}")
+        log(f"{tag} (a): launcher main: {arch} {n_params} parameters "
             f"(float32 masters), B={TRAIN_BATCH} S={TRAIN_SEQ}, "
             f"{TRAIN_STEPS} steps in {main_s:.3f} s (weights drawn "
             f"included); ms a step "
@@ -2275,7 +2701,7 @@ def train_phase(dev):
             f"in {sorted(n for n in by if by[n].n_samples)}, none and no "
             f"marker store in {list(TRAIN_INNER)}; launches {launches}")
 
-        cfg = get_config(MODEL_ARCH)
+        cfg = get_config(arch)
         breakdown = train_breakdown(state, cfg, dev)
 
         # (d) fused CE at full size, on the trained weights.
@@ -2286,46 +2712,21 @@ def train_phase(dev):
         batch = {k: torch.randint(0, cfg.vocab_size,
                                   (FUSED_CE_B, FUSED_CE_S), generator=g,
                                   device=dev) for k in ("tokens", "labels")}
-        ce = {}
-        for fuse in (True, False):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            t0 = time.perf_counter()
-            loss, _ = M.loss_fn(params, cfg, batch, fuse_ce=fuse)
-            fwd_peak = torch.cuda.max_memory_allocated() - base
-            grads = torch.autograd.grad(loss, tree_leaves(params))
-            torch.cuda.synchronize()
-            ce[fuse] = (float(loss.detach()),
-                        (time.perf_counter() - t0) * 1e3,
-                        torch.cuda.max_memory_allocated() - base, fwd_peak)
-            del loss, grads
-            torch.cuda.empty_cache()
-        rel = abs(ce[True][0] - ce[False][0]) / abs(ce[False][0])
-        check(rel <= FUSED_CE_RTOL, f"train (d): fused CE {ce[True][0]} vs "
-              f"plain {ce[False][0]} (rel {rel:.2e})")
-        check(ce[True][2] < ce[False][2], f"train (d): fused peak "
-              f"{ce[True][2]} not below plain {ce[False][2]}")
-        gib = [{k: v[i] / 2 ** 30 for k, v in ce.items()} for i in (2, 3)]
-        log(f"train (d): loss_fn at B={FUSED_CE_B} S={FUSED_CE_S}, forward "
-            f"+ backward: fused CE {ce[True][0]:.6f} ({ce[True][1]:.1f} ms, "
-            f"peak {gib[0][True]:.2f} GiB above the weights, forward alone "
-            f"{gib[1][True]:.2f}), plain {ce[False][0]:.6f} "
-            f"({ce[False][1]:.1f} ms, peak {gib[0][False]:.2f} GiB, forward "
-            f"alone {gib[1][False]:.2f}); rel {rel:.2e} (tolerance "
-            f"{FUSED_CE_RTOL}); the float32 gradients (7.57 GiB) are in "
-            f"both peaks")
+        ce = fused_ce_check(f"{tag} (d)", params, cfg, batch,
+                            peak="backward" if arch == MODEL_ARCH
+                            else "forward")
         del params, batch
         torch.cuda.empty_cache()
 
         # (b) card against CPU, reduced, float32.
-        rcfg = get_config(MODEL_ARCH).reduced().replace(
+        rcfg = get_config(arch).reduced().replace(
             compute_dtype="float32")
         opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10)
         data = SyntheticTokens(vocab_size=rcfg.vocab_size, seq_len=64,
                                global_batch=4)
         init = init_state(torch.Generator().manual_seed(0), rcfg, opt,
                           compression=True, device="cpu")
+        routes = _Routes()
         for accum, comp in ((1, False), (2, False), (1, True)):
             cpu = _to({k: v for k, v in init.items()
                        if comp or k != "residuals"}, "cpu")
@@ -2333,21 +2734,47 @@ def train_phase(dev):
             step = make_train_step(rcfg, opt, accum_steps=accum,
                                    compression=comp)
             n_el = sum(t.numel() for t in tree_leaves(init["params"]))
-            lrs, worst_l, flips = [], 0.0, []
+            lrs, worst_l, flips, moved, touched = [], 0.0, [], [], set()
+            moe = rcfg.family == "moe"
+            # The first moments before the step, each device's (moe).
+            mu0 = [[torch.zeros_like(m) for m in tree_leaves(st["opt"]["mu"])]
+                   for st in (cpu, gpu)]
             for i in range(3):
                 b = {k: torch.from_numpy(np.ascontiguousarray(v))
                      for k, v in data.batch(i).items()}
-                cpu, mc = step(cpu, b)
-                gpu, mg = step(gpu, {k: v.to(dev) for k, v in b.items()})
+                with routes:
+                    cpu, mc = step(cpu, b)
+                    gpu, mg = step(gpu, {k: v.to(dev)
+                                         for k, v in b.items()})
+                n_moved, n_routed, t = routes.compare(cpu["params"])
+                moved.append(n_moved)
+                touched |= t
+                check(n_moved <= TRAIN_ROUTE_FLIP_CAP * max(n_routed, 1),
+                      f"{tag} (b) accum {accum} compression {comp} step "
+                      f"{i + 1}: {n_moved} of {n_routed} routed tokens "
+                      f"routed apart (cap {TRAIN_ROUTE_FLIP_CAP})")
                 lc, lg = float(mc["loss"]), float(mg["loss"])
                 worst_l = max(worst_l, abs(lg - lc) / abs(lc))
                 check(abs(lg - lc) <= TRAIN_LOSS_RTOL * abs(lc),
-                      f"train (b) accum {accum} compression {comp} step "
+                      f"{tag} (b) accum {accum} compression {comp} step "
                       f"{i + 1}: loss {lg} on the card, {lc} on the CPU")
                 lrs.append(float(mc["lr"]))
                 if i == 0:
                     noise = [((m / (1 - opt.b1)).abs() < 10 * opt.eps)
                              & (m != 0) for m in tree_leaves(cpu["opt"]["mu"])]
+                if touched:
+                    noise = [n | r for n, r in zip(
+                        noise, _expert_masks(cpu["params"], touched))]
+                if moe:
+                    mu1 = [[m.detach().clone() for m in tree_leaves(
+                        st["opt"]["mu"])] for st in (cpu, gpu)]
+                    gc, gg = ([(m - opt.b1 * m0) / (1 - opt.b1)
+                               for m, m0 in zip(now, before)]
+                              for now, before in zip(mu1, mu0))
+                    noise = [n | ((c - g.cpu()).abs()
+                                  > TRAIN_GRAD_ROUND_RTOL * c.abs())
+                             for n, c, g in zip(noise, gc, gg)]
+                    mu0 = mu1
                 if comp:
                     # Residuals within atol 1e-6 except where a code was
                     # rounded apart; those are counted and capped.
@@ -2361,17 +2788,18 @@ def train_phase(dev):
                     flips.append(n_flip)
                     cap = TRAIN_FLIP_CAP.get(i + 1)
                     check(cap is None or n_flip <= cap * n_el,
-                          f"train (b) compression step {i + 1}: residuals "
+                          f"{tag} (b) compression step {i + 1}: residuals "
                           f"of {n_flip} elements of {n_el} more than 1e-6 "
                           f"apart (cap {cap})")
             worst, worst_n, n = _train_param_check(
-                f"train (b) accum {accum} compression {comp}",
+                f"{tag} (b) accum {accum} compression {comp}",
                 tree_leaves(gpu["params"]), tree_leaves(cpu["params"]),
                 noise, opt.lr, lrs)
-            check(comp or n <= TRAIN_NOISE_CAP * n_el,
-                  f"train (b) accum {accum}: {n} rounding-led elements of "
-                  f"{n_el} (cap {TRAIN_NOISE_CAP})")
-            log(f"train (b): reduced {MODEL_ARCH} float32, accum_steps "
+            cap = TRAIN_MOE_NOISE_CAP if moe else TRAIN_NOISE_CAP
+            check(comp or n <= cap * n_el,
+                  f"{tag} (b) accum {accum}: {n} rounding-led elements of "
+                  f"{n_el} (cap {cap})")
+            log(f"{tag} (b): reduced {arch} float32, accum_steps "
                 f"{accum}, compression {comp}: 3 steps on the card and on "
                 f"the CPU; losses within rel {worst_l:.2e} (tolerance "
                 f"{TRAIN_LOSS_RTOL}); parameters {worst:.3g} apart (atol "
@@ -2380,11 +2808,17 @@ def train_phase(dev):
                 + (f"; elements whose residuals were ever more than 1e-6 "
                    f"apart (codes rounded apart), after each step: {flips} "
                    f"(caps {TRAIN_FLIP_CAP} of the elements after steps 1 "
-                   f"and 3)" if comp else ""))
+                   f"and 3)" if comp else "")
+                + (f"; tokens routed apart in each step {moved} (cap "
+                   f"{TRAIN_ROUTE_FLIP_CAP} of the routed tokens), experts "
+                   f"they touch {sorted(touched)}; an element whose "
+                   f"gradient in some step differed by more than "
+                   f"{TRAIN_GRAD_ROUND_RTOL} of it counts as rounding-led "
+                   f"(cap {cap} of the elements)" if moe else ""))
         del init, cpu, gpu
 
         # (c) kill and resume, reduced, bf16 compute, on the card.
-        ccfg = get_config(MODEL_ARCH).reduced()
+        ccfg = get_config(arch).reduced()
         copt = AdamWConfig(total_steps=6)
         cdata = SyntheticTokens(vocab_size=ccfg.vocab_size, seq_len=64,
                                 global_batch=4)
@@ -2409,17 +2843,17 @@ def train_phase(dev):
             trainer(os.path.join(tmp, "k"), 4).run()
             resumed = trainer(os.path.join(tmp, "k"), 6)
             check(resumed.try_resume() and resumed.step == 4,
-                  f"train (c): resumed at step {resumed.step}")
+                  f"{tag} (c): resumed at step {resumed.step}")
             after = resumed.run()["metrics"]
         want = [m["loss"] for m in runs[0][4:]]
         got = [m["loss"] for m in after]
-        check(got == want, f"train (c): losses after the resume {got} vs "
+        check(got == want, f"{tag} (c): losses after the resume {got} vs "
               f"the straight run's {want}")
         check(all(torch.equal(a, b) for a, b in zip(
             tree_leaves(resumed.state), tree_leaves(straight[0].state))),
-            "train (c): final state after the resume equals the straight "
+            f"{tag} (c): final state after the resume equals the straight "
             "run's bit for bit")
-        log(f"train (c): reduced {MODEL_ARCH} bf16 on the card: 4 steps, "
+        log(f"{tag} (c): reduced {arch} bf16 on the card: 4 steps, "
             f"killed, resumed from the step-4 checkpoint, 2 more: losses "
             f"{got} and the final state equal a straight 6-step run bit for "
             f"bit; two straight runs bitwise equal: {repeat}")
@@ -2443,20 +2877,18 @@ def train_phase(dev):
             try:
                 fn()
             except RuntimeError as e:
-                check("no gradient" in str(e), f"train (e): {name}: {e}")
+                check("no gradient" in str(e), f"{tag} (e): {name}: {e}")
                 refused.append(name)
             else:
-                check(False, f"train (e): {name} gave a tensor without a "
+                check(False, f"{tag} (e): {name} gave a tensor without a "
                       f"gradient instead of raising")
-        log(f"train (e): a gradient through {refused} raises on the card")
+        log(f"{tag} (e): a gradient through {refused} raises on the card")
     finally:
         signal.signal(signal.SIGTERM, prev_sigterm)
     torch.cuda.empty_cache()
     return dict(launches=launches, ms=ms, losses=losses, tokens_per_s=tok_s,
-                peak_bytes=peak, n_params=n_params,
-                fused_peak=ce[True][2], plain_peak=ce[False][2],
-                fused_fwd_peak=ce[True][3], plain_fwd_peak=ce[False][3],
-                breakdown=breakdown)
+                peak_bytes=peak, n_params=n_params, breakdown=breakdown,
+                **ce)
 
 
 # ---------------------------------------------------------------------------
@@ -2490,32 +2922,70 @@ def main():
     # The main path runs before any torch.profiler session: a process that
     # has traced the device pays more host time per launch afterwards, and
     # the chunk loop is launch-bound (PERF.md).
-    clock_phase()
-    parity_phase()
-    combo_parity_phase()
-    t0 = time.perf_counter()
-    tl = full_timeline()
-    log(f"full: timeline of {len(tl.names)} regions, {len(tl.region_ids)} "
-        f"intervals, {tl.num_domains} rails, t_exec={tl.t_exec:.3f} s "
-        f"(synthesized in {time.perf_counter() - t0:.1f} s)")
-    full = full_phase(tl)
-    combo = combo_full_phase(tl)
-    exchange_phase(full.pop("agg"), combo.pop("agg"), smi)
-    host_seam_phase()
-    host_session_phase(dev)
-    kernel_phase(dev)
-    flash_row = flash_phase(dev)
-    rmsnorm_row = rmsnorm_phase(dev)
-    fold = breakdown_phase(tl)
-    combo_fold = combo_fold_phase(combo)
+    with phase("clock"):
+        clock_phase()
+    with phase("parity"):
+        parity_phase()
+    with phase("combo-parity"):
+        combo_parity_phase()
+    with phase("full"):
+        t0 = time.perf_counter()
+        tl = full_timeline()
+        log(f"full: timeline of {len(tl.names)} regions, "
+            f"{len(tl.region_ids)} intervals, {tl.num_domains} rails, "
+            f"t_exec={tl.t_exec:.3f} s (synthesized in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        full = full_phase(tl)
+    with phase("combo-full"):
+        combo = combo_full_phase(tl)
+    with phase("exchange"):
+        exchange_phase(full.pop("agg"), combo.pop("agg"), smi)
+    with phase("host-seam"):
+        host_seam_phase()
+    with phase("host-session"):
+        host_session_phase(dev)
+    with phase("kernel"):
+        kernel_phase(dev)
+        flash_row = flash_phase(dev)
+        rmsnorm_row = rmsnorm_phase(dev)
+    with phase("breakdown"):
+        fold = breakdown_phase(tl)
+    with phase("combo-fold"):
+        combo_fold = combo_fold_phase(combo)
     del tl, combo["chunk"]
-    model = model_phase(dev)
-    model_breakdown(model)
-    for k in ("params", "cache"):
-        del model[k]
-    serve = serve_phase(dev)
-    with watchdog(600, "train phase"):
-        train = train_phase(dev)
+    paths = {}                  # path -> its launch counts
+    with phase(f"model {MODEL_ARCH}"):
+        model = model_phase(dev)
+        model_breakdown(model)
+        paths["launches"] = model["launches"]
+    del model
+    with phase(f"serve {MODEL_ARCH}"):
+        paths["serve_launches"] = serve_phase(dev)["launches"]
+    with phase(f"train {MODEL_ARCH}"), watchdog(600, "train phase"):
+        paths["train_launches"] = train_phase(dev)["launches"]
+    with phase(f"model {MOE_ARCH}"):
+        moe = model_phase(dev, MOE_ARCH)
+        model_breakdown(moe)
+        paths["moe_launches"] = moe["launches"]
+    del moe
+    with phase(f"serve {MOE_ARCH}"):
+        paths["moe_serve_launches"] = serve_phase(dev, MOE_ARCH)["launches"]
+    with phase(f"train {MOE_ARCH}"), watchdog(600, "moe train phase"):
+        paths["moe_train_launches"] = train_phase(dev, MOE_ARCH)["launches"]
+    with phase(f"model {MOE30_ARCH}"):
+        paths["moe30b_launches"] = model_phase(
+            dev, MOE30_ARCH, depth=MOE30_DEPTH, steps=MOE30_DECODE
+        )["launches"]
+    with phase(f"model {VLM_ARCH}"):
+        paths["vlm_launches"] = model_phase(
+            dev, VLM_ARCH, patches=VLM_PATCHES)["launches"]
+    with phase(f"serve {VLM_ARCH}"):
+        paths["vlm_serve_launches"] = serve_phase(
+            dev, VLM_ARCH, full=False)["launches"]
+    with phase(f"loss {VLM_ARCH}"):
+        vlm_loss_phase(dev)
+    with phase(f"model {AUDIO_ARCH}"):
+        paths["audio_launches"] = audio_phase(dev)["launches"]
 
     split = fold.pop("split_ms")
     combo_fold.pop("split_ms")
@@ -2530,32 +3000,35 @@ def main():
         path=f"combination path: combo-full's steady chunk (c=65536, "
              f"W={COMBO_WORKERS}, R=capacity {combo['cap']}, C=4)",
         check=fold_check)
+    def path_launches(kernel):
+        return {k: v[kernel] for k, v in paths.items() if k != "launches"}
+
     kernels = [dict(
         name="sample_attr", route="cuda",
         source="src/repro_torch/kernels/sample_attr/sample_attr.cu",
         replaces="src/repro/kernels/sample_attr/sample_attr.py:80",
         **region_path, paths=[region_path, combo_path],
-        serve_launches=serve["launches"]["sample_attr_fold"],
-        train_launches=train["launches"]["sample_attr_fold"]),
+        **path_launches("sample_attr_fold")),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/"
                     "flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/"
                       "flash_attention.py:89",
-             launches=model["launches"]["flash_attention"], **flash_row,
+             launches=paths["launches"]["flash_attention"], **flash_row,
              path=f"{MODEL_ARCH} prefill (one launch per layer); timed at "
-                  f"B=4 H=16 KV=8 S=2048 dh=128 bf16 causal",
-             serve_launches=serve["launches"]["flash_attention"],
-             train_launches=train["launches"]["flash_attention"]),
+                  f"B=4 H=16 KV=8 S=2048 dh=128 bf16 causal; moe_launches "
+                  f"{MOE_ARCH}, moe30b_launches {MOE30_ARCH} (8 layers), "
+                  f"vlm_launches {VLM_ARCH}, audio_launches {AUDIO_ARCH} "
+                  f"(forward)",
+             **path_launches("flash_attention")),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:35",
-             launches=model["launches"]["rmsnorm"], **rmsnorm_row,
+             launches=paths["launches"]["rmsnorm"], **rmsnorm_row,
              path="not on the model path: the models normalise with "
                   "layers.rmsnorm, as the reference's do; timed at "
                   "[8192, 2048] bf16",
-             serve_launches=serve["launches"]["rmsnorm"],
-             train_launches=train["launches"]["rmsnorm"])]
+             **path_launches("rmsnorm"))]
     log(f"kernel share of the full run: "
         f"{full['launches'] * fold['ms'] / 1e3 / full['seconds']:.4f} "
         f"(launches x {fold['timing']} of the fold on the full run's chunk "

@@ -93,18 +93,20 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
     """The reference's ``M.init_params`` pytree, as numpy (``np.asarray``
     of each leaf) → the port's params: the same nest of dicts, with
     ``blocks`` unstacked from its leading layer axis into a list of
-    per-layer dicts. Dtypes are kept (the reference's master weights are
-    float32). Dense family only, like the port's models."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family "
-                                  f"is not ported yet (ROADMAP A7)")
+    per-layer dicts; a MoE block's expert stacks keep their expert axis
+    ([E, d, ff] per layer). Dtypes are kept (the reference's master
+    weights are float32). The families the port's models run
+    (:func:`repro_torch.models.transformer.check_family` raises for the
+    others)."""
+    from repro_torch.models.transformer import check_family
+    check_family(cfg)
     p = tree_to_torch(dict(tree), device)
     p["blocks"] = _unstack(p["blocks"], cfg.n_layers)
     return p
 
 
 def cache_from_jax(cache, cfg, device="cuda") -> dict:
-    """The reference's dense KV cache ``{"blocks": {"k", "v"}}``, as numpy,
+    """The reference's KV cache ``{"blocks": {"k", "v"}}``, as numpy,
     with [L, B, KV, T, dh] leaves (bfloat16 by default) → the port's
     ``{"blocks": [{"k", "v"} per layer]}``, dtype kept."""
     return {"blocks": _unstack(tree_to_torch(cache["blocks"], device),

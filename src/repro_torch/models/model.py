@@ -1,12 +1,17 @@
-"""Top-level model assembly for the dense family: init / forward / loss /
+"""Top-level model assembly for the families built of the standard
+attention block (dense, moe, audio, vlm): init / forward / loss /
 prefill / cache / decode.
 
 Port of ``src/repro/models/model.py``. The reference stacks the layers on
 a leading axis and scans over them; here ``p["blocks"]`` and the KV
 cache's ``cache["blocks"]`` are Python lists with one dict per layer, and
 a Python loop runs the layers (:func:`repro_torch.convert.params_from_jax`
-unstacks the reference's weights). The other families raise
-``NotImplementedError`` naming ROADMAP A7.
+unstacks the reference's weights). Audio (``cfg.embed_inputs``) takes
+precomputed frame embeddings plus sinusoidal positions and is an
+encoder: forward and loss only. VLM takes optional ``patch_embeds``
+ahead of the token embeddings; its loss covers the text positions. The
+recurrent families (ssm, hybrid) raise ``NotImplementedError`` naming
+ROADMAP A7(d)/(e).
 
 Training: :func:`loss_fn` (plain or fused chunked lm_head + CE) is what
 ``train/step.py`` differentiates. When autograd records, each block runs
@@ -22,6 +27,7 @@ the CPU), the rest follow the parameters and inputs they are given.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -33,7 +39,7 @@ from repro_torch.core import regions
 from repro_torch.core.regions import region
 from repro_torch.models import transformer as tb
 from repro_torch.models.layers import (Params, dense_init, embed_init, norm,
-                                       norm_init)
+                                       norm_init, sinusoidal_positions)
 from repro_torch.tree import tree_leaves
 
 __all__ = ["init_params", "cast_params", "forward", "loss_fn",
@@ -111,31 +117,33 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     if generator.device.type != dev.type:
         raise ValueError(f"init_params: the generator is on "
                          f"{generator.device}, the weights go to {dev}")
-    return {
-        "embed": embed_init(generator, cfg.vocab_size, cfg.d_model),
-        "final_norm": norm_init(cfg.d_model, cfg.norm_kind, generator.device),
-        "lm_head": dense_init(generator, cfg.d_model, cfg.vocab_size),
-        "blocks": [tb.tblock_init(generator, cfg)
-                   for _ in range(cfg.n_layers)],
-    }
+    p: Params = {}
+    if not cfg.embed_inputs:
+        p["embed"] = embed_init(generator, cfg.vocab_size, cfg.d_model)
+    p["final_norm"] = norm_init(cfg.d_model, cfg.norm_kind, generator.device)
+    p["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size)
+    p["blocks"] = [tb.tblock_init(generator, cfg)
+                   for _ in range(cfg.n_layers)]
+    return p
 
 
 def cast_params(p: Params, cfg: ModelConfig) -> Params:
-    """A copy of ``p`` with every matrix (embedding, projections, head)
-    held in the compute dtype; norm scales and biases stay float32.
+    """A copy of ``p`` with every matrix (embedding, projections, expert
+    stacks, head) held in the compute dtype; norm scales, biases and the
+    MoE router stay float32.
 
     The model casts each matrix to the activation dtype at every use
-    (``layers.linear``, the embedding gather, the head), so the numbers
-    are the same: this only saves the cast at every call. Made once at
-    load."""
+    (``layers.linear``, the embedding gather, the experts, the head) and
+    the router to float32, so the numbers are the same: this only saves
+    the cast at every call. Made once at load."""
     dt = _compute_dtype(cfg)
 
-    def conv(x):
+    def conv(x, key=None):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, list):
             return [conv(v) for v in x]
-        return x.to(dt) if x.ndim >= 2 else x
+        return x.to(dt) if x.ndim >= 2 and key != "router" else x
     return conv(p)
 
 
@@ -143,12 +151,29 @@ def cast_params(p: Params, cfg: ModelConfig) -> Params:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _sinusoidal(seq: int, d: int, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """:func:`sinusoidal_positions` in ``dtype`` on ``device``, made once
+    per key and shared read-only."""
+    return torch.from_numpy(sinusoidal_positions(seq, d)).to(device, dtype)
+
+
 def _embed(p: Params, cfg: ModelConfig, batch: dict):
-    """Token embedding → x [B,S,d] (compute dtype), positions [B,S]."""
+    """Frontend embedding → x [B,S,d] (compute dtype), positions [B,S].
+
+    Audio (``cfg.embed_inputs``): ``batch["embeds"]`` plus sinusoidal
+    positions. Otherwise the tokens' embeddings, for VLM behind
+    ``batch["patch_embeds"]`` when given."""
     dt = _compute_dtype(cfg)
-    tokens = batch["tokens"]
-    with region("embed"):
-        x = p["embed"].to(dt)[tokens]
+    if cfg.embed_inputs:
+        x = batch["embeds"].to(dt)
+        x = x + _sinusoidal(x.shape[1], cfg.d_model, dt, x.device)[None]
+    else:
+        with region("embed"):
+            x = p["embed"].to(dt)[batch["tokens"]]
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(dt), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
@@ -246,11 +271,15 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: dict, *,
             q_chunk: int = 1024, ce_chunk: int = 512):
     """Training loss → (ce + aux, {"ce", "aux"}). ``fuse_ce=None`` fuses
     the head and CE when there is no ``loss_mask`` and S >= 2048.
-    ``ssd_chunk`` and ``unroll`` are the reference's knobs for other
-    families and for its cost pass; the dense family ignores them."""
+    ``ssd_chunk`` and ``unroll`` are the reference's knobs for the
+    recurrent families and for its cost pass; the standard-block families
+    ignore them. For VLM with ``patch_embeds`` the loss covers the text
+    positions only: the patch prefix carries no labels."""
     del ssd_chunk, unroll
     tb.check_family(cfg)
     labels = batch["labels"]
+    n_patch = (batch["patch_embeds"].shape[1]
+               if cfg.family == "vlm" and "patch_embeds" in batch else 0)
     if fuse_ce is None:
         fuse_ce = (batch.get("loss_mask") is None
                    and labels.shape[-1] >= 2048)
@@ -258,7 +287,8 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: dict, *,
         x, positions = _embed(p, cfg, batch)
         x, aux = _backbone(p, cfg, x, positions, attn_impl=attn_impl,
                            q_chunk=q_chunk)
-        x = norm(p["final_norm"], x, kind=cfg.norm_kind, eps=cfg.norm_eps)
+        x = norm(p["final_norm"], x[:, n_patch:], kind=cfg.norm_kind,
+                 eps=cfg.norm_eps)
         with region("loss"):
             ce = fused_lm_head_ce(p, cfg, x, labels, seq_chunk=ce_chunk)
         return ce + aux, {"ce": ce, "aux": aux}
@@ -266,15 +296,18 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: dict, *,
     logits, aux = forward(p, cfg, batch, attn_impl=attn_impl,
                           q_chunk=q_chunk)
     with region("loss"):
-        ce = cross_entropy(logits, labels, batch.get("loss_mask"))
+        ce = cross_entropy(logits[:, n_patch:], labels,
+                           batch.get("loss_mask"))
     return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(p: Params, cfg: ModelConfig, batch: dict, max_len: int, *,
             attn_impl: str = "chunked", cache_dtype=torch.bfloat16,
             q_chunk: int = 1024):
-    """Inference prefill: forward over the prompt, returning (logits of the
-    last position [B,1,V], populated cache, cur_len = S)."""
+    """Inference prefill: forward over the prompt (for VLM, the patch
+    embeddings and the tokens), returning (logits of the last position
+    [B,1,V], populated cache, cur_len = S)."""
+    _check_decoder(cfg)
     x, positions = _embed(p, cfg, batch)
     S = x.shape[1]
     caches = []
@@ -294,11 +327,19 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, max_len: int, *,
 # Cache + decode
 # ---------------------------------------------------------------------------
 
+def _check_decoder(cfg: ModelConfig) -> None:
+    """Raise for an encoder (audio): it has no cache and no decode."""
+    tb.check_family(cfg)
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name} is encoder-only: forward and loss "
+                         f"only, no prefill, cache or decode")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Params:
     """Zero KV cache: ``{"blocks": [{"k", "v"} per layer]}``, each
     [batch, KV, max_len, dh]."""
-    tb.check_family(cfg)
+    _check_decoder(cfg)
     dev = resolve_device(device)
     shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {"blocks": [{"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -310,7 +351,7 @@ def reset_cache_slots(cfg: ModelConfig, cache: Params,
                       slot_mask: torch.Tensor) -> Params:
     """Zero the cache rows of every True entry of ``slot_mask`` [B], in
     place (slot admission for continuous batching); returns the cache."""
-    tb.check_family(cfg)
+    _check_decoder(cfg)
     for c in cache["blocks"]:
         for t in c.values():
             t[slot_mask.to(device=t.device, dtype=torch.bool)] = 0
@@ -334,6 +375,7 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     The cache is updated in place and returned. Returns
     (logits [B,S,V], cache).
     """
+    _check_decoder(cfg)
     dt = _compute_dtype(cfg)
     with region("embed"):
         x = p["embed"].to(dt)[tokens]
@@ -351,8 +393,10 @@ def decode_verify(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   write_mask: torch.Tensor | None = None):
     """Self-speculative verify: score L >= 1 positions in one step.
 
-    For the dense family this is the multi-position :func:`decode_step`:
-    each query row attends over the full cache under its own causal mask.
+    For the KV-cache families this is the multi-position
+    :func:`decode_step`: each query row attends over the full cache under
+    its own causal mask (a MoE block is dropless there, so each row's
+    experts are its own).
     Returns ``(logits [B,L,V], cache)``.
     """
     return decode_step(p, cfg, tokens, cache, cur_len,

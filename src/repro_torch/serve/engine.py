@@ -1,10 +1,12 @@
 """Serving engine: masked decode steps on the device + a
 continuous-batching host scheduler (slot-based, vLLM-lite).
 
-Port of ``src/repro/serve/engine.py``. The device side is the dense
-model's decode step (prefill fills a slot's cache by teacher-forced
-decode steps; decode advances every active slot one token), run eagerly
-on the engine's device, which defaults to the GPU. The host side packs
+Port of ``src/repro/serve/engine.py``. The device side is the model's
+decode step for the KV-cache families the port runs (dense, moe, vlm;
+prefill fills a slot's cache by teacher-forced decode steps, decode
+advances every active slot one token; a MoE block is dropless there, so
+no slot's tokens depend on the others'), run eagerly on the engine's
+device, which defaults to the GPU. The host side packs
 requests into fixed slots so the decode step shape stays static. ALEA
 regions wrap both so serving energy is attributable per phase: attach a
 :class:`PhaseEnergyAccountant` and the engine drains the host sampler's
@@ -13,7 +15,8 @@ serving run of any length holds O(R + drain chunk) profiling state,
 never the full sample stream.
 
 The model runs inside :func:`repro_torch.core.regions.opaque`, so its
-own regions (``embed``, ``attn``, ``ffn``, ``lm_head``) label a profiler
+own regions (``embed``, ``attn``, ``ffn``, ``moe_router``, ``moe_ffn``,
+``lm_head``) label a profiler
 trace but take no samples: a sample taken during a step lands in the
 serving phase around it, as in the reference, whose jitted steps run
 their regions only while being traced.
@@ -919,10 +922,13 @@ class Engine:
           position j; the first mismatch truncates the window and the
           verify argmax itself is emitted, exactly the token the
           baseline would have produced).
-        * KV families (dense/moe) roll back rejected positions by slot
-          length alone: rows past ``slot_len`` are invisible to every
-          mask and are rewritten by the next window before they can be
-          read.
+        * KV families (dense/moe/vlm) roll back rejected positions by
+          slot length alone: rows past ``slot_len`` are invisible to
+          every mask and are rewritten by the next window before they
+          can be read. A MoE block is dropless in the verify step as in
+          the single-token step, so each position's experts and output
+          depend on that position's input alone (a capacity gather
+          would let the other rows of the L-wide batch drop it).
         * Recurrent families (ssm/hybrid) advance state once per call,
           so rejected drafts would leave wrong state behind. The
           window-start cache (a clone: the steps write the cache in

@@ -34,6 +34,9 @@ from repro_torch.serve import recovery as p_recovery
 from repro_torch.serve import scheduler as p_scheduler
 
 ARCH = "qwen3-1.7b"
+# The KV-cache families the serving tests run: dense and moe
+# (``tests/test_serve_ragged.py``'s positional-KV pair).
+KV_ARCHS = ("qwen3-1.7b", "qwen3-moe-30b-a3b")
 
 
 def _pkg(name, engine, recovery, scheduler, regions, sampler, faults,
@@ -66,9 +69,9 @@ def weights(compute_dtype: str = "bfloat16", arch: str = ARCH):
     return rcfg, rp, pcfg, pp
 
 
-def setup(pkg, compute_dtype: str = "bfloat16"):
+def setup(pkg, compute_dtype: str = "bfloat16", arch: str = ARCH):
     """(config, params) of ``pkg`` from :func:`weights`."""
-    rcfg, rp, pcfg, pp = weights(compute_dtype)
+    rcfg, rp, pcfg, pp = weights(compute_dtype, arch)
     return (rcfg, rp) if pkg is REF else (pcfg, pp)
 
 

@@ -1,7 +1,11 @@
 """Port parity: repro_torch's configs, regions, layers, attention and
-dense-family model (forward, prefill, decode) against the JAX reference,
-on the reference's own weights (``M.init_params`` through
-``params_from_jax``) and numpy-seeded inputs.
+model (forward, prefill, decode, loss) against the JAX reference, on the
+reference's own weights (``M.init_params`` through ``params_from_jax``)
+and numpy-seeded inputs: four reduced dense configs, and the moe
+(``qwen3-moe-30b-a3b``, ``granite-moe-1b-a400m``), vlm
+(``internvl2-1b``, with ``patch_embeds``) and audio (``hubert-xlarge``,
+with ``embeds``, non-causal) families in float32, the MoE routers'
+expert choices equal to the reference's.
 
 Tolerances:
 
@@ -275,9 +279,9 @@ def test_unknown_impl_and_family_raise():
     with pytest.raises(ValueError, match="unknown attention impl"):
         PA._attend(pcfg, q, q[:, :2], q[:, :2], None, impl="pallas",
                    q_chunk=8)
-    moe = preg.get_config("qwen3-moe-30b-a3b").reduced()
+    xlstm = preg.get_config("xlstm-125m").reduced()
     with pytest.raises(NotImplementedError, match="A7"):
-        PM.init_params(torch.Generator().manual_seed(0), moe, device="cpu")
+        PM.init_params(torch.Generator().manual_seed(0), xlstm, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -422,3 +426,249 @@ def test_init_cache_matches_reference_and_gpu_is_required():
         pytest.skip("a GPU is present; the default device is usable")
     with pytest.raises(RuntimeError, match="no GPU"):
         PM.init_cache(pcfg, 2, 16)
+
+
+# ---------------------------------------------------------------------------
+# The moe, vlm and audio families (float32)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["qwen3-moe-30b-a3b", "granite-moe-1b-a400m", "internvl2-1b",
+                "hubert-xlarge"]
+DECODER_ARCHS = FAMILY_ARCHS[:3]
+N_PATCH = 8
+# A token whose k-th and (k+1)-th router probabilities lie this close is a
+# near tie: reported and left out of the expert-choice equality.
+TIE_GAP = 1e-6
+_r_forward = jax.jit(RM.forward, static_argnums=1,
+                     static_argnames=("attn_impl", "q_chunk"))
+
+
+def _family_batch(cfg, B, S, seed, labels=False):
+    """numpy inputs of S positions: tokens (behind N_PATCH patch
+    embeddings for vlm) or frame embeddings (audio); labels on the text
+    positions."""
+    rng = np.random.default_rng(seed)
+    if cfg.embed_inputs:
+        b = {"embeds": rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)}
+    elif cfg.family == "vlm":
+        b = {"patch_embeds": 0.1 * rng.standard_normal(
+                 (B, N_PATCH, cfg.d_model)).astype(np.float32),
+             "tokens": _tokens(cfg, B, S - N_PATCH, seed + 1)}
+    else:
+        b = {"tokens": _tokens(cfg, B, S, seed + 1)}
+    if labels:
+        n = S - N_PATCH if cfg.family == "vlm" else S
+        b["labels"] = _tokens(cfg, B, n, seed + 2)
+    return b
+
+
+def _j(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def _t(b):
+    return {k: torch.from_numpy(v.copy()) for k, v in b.items()}
+
+
+class _Routes:
+    """Records the port's router inputs and expert choices, layer by
+    layer, while the block is active."""
+
+    def __init__(self, monkeypatch):
+        from repro_torch.models import moe as PMoE
+        self.calls = []
+        orig = PMoE.router
+
+        def rec(p, cfg, x):
+            out = orig(p, cfg, x)
+            self.calls.append((_np(x), out[1].numpy()))
+            return out
+        monkeypatch.setattr(PMoE, "router", rec)
+
+    def check(self, rp, rcfg, n_layers):
+        """The reference's router on the port's inputs chooses the same
+        experts, near ties apart; returns the near-tie count."""
+        from repro.models import moe as RMoE
+        assert len(self.calls) % n_layers == 0 and self.calls
+        ties = 0
+        for i, (x, top_i) in enumerate(self.calls):
+            w = rp["blocks"]["moe"]["router"][i % n_layers]
+            _, want, _ = RMoE.router({"router": w}, rcfg, jnp.asarray(x))
+            probs = np.sort(np.asarray(jax.nn.softmax(
+                jnp.asarray(x) @ w, -1)), -1)[:, ::-1]
+            k = rcfg.top_k
+            tie = np.abs(probs[:, k - 1] - probs[:, k]) < TIE_GAP
+            ties += int(tie.sum())
+            np.testing.assert_array_equal(top_i[~tie],
+                                          np.asarray(want)[~tie])
+        return ties
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_inits_draw_the_reference_shapes(arch):
+    rp, _ = _weights(arch)
+    _, pcfg = _cfgs(arch, "float32")
+    got = PM.init_params(torch.Generator().manual_seed(0), pcfg,
+                         device="cpu")
+    want = params_from_jax(jax.tree.map(np.asarray, rp), pcfg, device="cpu")
+    shapes = jax.tree.map(lambda t: (tuple(t.shape), t.dtype), got)
+    assert shapes == jax.tree.map(lambda t: (tuple(t.shape), t.dtype), want)
+    assert ("embed" in got) == (not pcfg.embed_inputs)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+@pytest.mark.parametrize("impl,rimpl", [("full", "full"),
+                                        ("flash", "pallas")])
+def test_family_forward_matches_reference(arch, impl, rimpl, monkeypatch):
+    rcfg, pcfg = _cfgs(arch, "float32")
+    rp, pp = _weights(arch)
+    b = _family_batch(rcfg, 2, 64, 3)
+    routes = _Routes(monkeypatch)
+    got, aux = PM.forward(pp, pcfg, _t(b), attn_impl=impl, q_chunk=32)
+    want, raux = _r_forward(rp, rcfg, _j(b), attn_impl=rimpl, q_chunk=32)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
+    np.testing.assert_allclose(float(aux), float(raux), **F32)
+    if pcfg.family == "moe":
+        ties = routes.check(rp, rcfg, pcfg.n_layers)
+        print(f"{arch}: {ties} near-tie router rows")
+        assert float(aux) > 0
+    else:
+        assert not routes.calls and float(aux) == 0.0
+
+
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
+def test_family_prefill_and_decode_match_reference(arch, monkeypatch):
+    """Prefill through the flash path (the reference's Pallas kernel in
+    interpret mode), for vlm with the patch prefix, then 4 dropless
+    decode steps with a ragged ``cur_len`` and a ``write_mask``; greedy
+    tokens fed back from the reference."""
+    rcfg, pcfg = _cfgs(arch, "float32")
+    rp, pp = _weights(arch)
+    B, S, max_len = 3, 32, 40
+    b = _family_batch(rcfg, B, S, 5)
+    routes = _Routes(monkeypatch)
+    rlog, rcache, rcl = _r_prefill(rp, rcfg, _j(b), max_len,
+                                   attn_impl="pallas",
+                                   cache_dtype=jnp.float32)
+    plog, pcache, pcl = PM.prefill(pp, pcfg, _t(b), max_len,
+                                   attn_impl="flash",
+                                   cache_dtype=torch.float32)
+    assert int(pcl) == int(rcl) == S
+    np.testing.assert_allclose(_np(plog), np.asarray(rlog), **F32)
+    got = _stack_cache(pcache)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(got[k], np.asarray(rcache["blocks"][k]),
+                                   **F32)
+    pcache = cache_from_jax(jax.tree.map(np.asarray, rcache), pcfg,
+                            device="cpu")
+    cl = np.array([S, S - 5, S - 9], np.int32)
+    wm = np.array([True, False, True])
+    tok = b["tokens"][:, -1:]
+    for _ in range(4):
+        rlog, rcache = _r_decode(rp, rcfg, jnp.asarray(tok), rcache,
+                                 jnp.asarray(cl), write_mask=jnp.asarray(wm))
+        plog, pcache = PM.decode_step(pp, pcfg, torch.from_numpy(tok),
+                                      pcache, torch.from_numpy(cl),
+                                      write_mask=torch.from_numpy(wm))
+        np.testing.assert_allclose(_np(plog), np.asarray(rlog), **F32)
+        got = _stack_cache(pcache)
+        for k in ("k", "v"):
+            np.testing.assert_allclose(
+                got[k], np.asarray(rcache["blocks"][k]), **F32)
+        np.testing.assert_array_equal(np.asarray(rlog).argmax(-1),
+                                      _np(plog).argmax(-1))
+        tok = np.asarray(rlog, np.float32).argmax(-1).astype(np.int32)
+        cl = cl + 1
+    if pcfg.family == "moe":
+        routes.check(rp, rcfg, pcfg.n_layers)
+
+
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
+def test_family_decode_matches_forward(arch):
+    """Decoding a sequence token by token gives the full forward's logits
+    (``tests/test_arch_smoke.py::test_decode_matches_forward``; MoE at
+    capacity factor E/k, where the capacity path drops nothing)."""
+    _, pcfg = _cfgs(arch, "float32")
+    _, pp = _weights(arch)
+    if pcfg.family == "moe":
+        pcfg = pcfg.replace(capacity_factor=float(pcfg.n_experts
+                                                  / pcfg.top_k))
+    B, S = 2, 16
+    toks = torch.from_numpy(_tokens(pcfg, B, S, 13))
+    full, _ = PM.forward(pp, pcfg, {"tokens": toks})
+    cache = PM.init_cache(pcfg, B, S, dtype=torch.float32, device="cpu")
+    outs = []
+    for t in range(S):
+        logits, cache = PM.decode_step(pp, pcfg, toks[:, t:t + 1], cache,
+                                       torch.tensor(t, dtype=torch.int32))
+        outs.append(logits)
+    np.testing.assert_allclose(_np(torch.cat(outs, 1)), _np(full), **F32)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+@pytest.mark.parametrize("fuse", [False, True], ids=["plain", "fused"])
+def test_family_loss_matches_reference(arch, fuse):
+    """``loss_fn`` and its gradient (vlm: text positions only; moe: ce +
+    aux). Losses within abs 1e-5, gradients within rtol 1e-4 / atol 2e-6
+    (``tests/test_torch_loss.py``'s limits)."""
+    from repro_torch.tree import tree_leaves, tree_map
+    rcfg, pcfg = _cfgs(arch, "float32")
+    rp, pp = _weights(arch)
+    b = _family_batch(rcfg, 2, 64, 9, labels=True)
+    (rl, rm), rg = jax.jit(jax.value_and_grad(
+        lambda p, bb: RM.loss_fn(p, rcfg, bb, fuse_ce=fuse, ce_chunk=16),
+        has_aux=True))(rp, _j(b))
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(), pp)
+    pl, pm = PM.loss_fn(p, pcfg, _t(b), fuse_ce=fuse, ce_chunk=16)
+    grads = torch.autograd.grad(pl, tree_leaves(p))
+    assert abs(float(pl.detach()) - float(rl)) <= 1e-5
+    np.testing.assert_allclose(float(pm["aux"]), float(rm["aux"]), **F32)
+    want = tree_leaves(params_from_jax(jax.tree.map(np.asarray, rg), pcfg,
+                                       device="cpu"))
+    assert len(want) == len(grads)
+    for a, w in zip(grads, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=2e-6)
+
+
+def test_fused_ce_vlm_and_nondivisor_chunk():
+    """``tests/test_loss_paths.py``'s case on the port: fused CE with the
+    patch prefix sliced off, at a chunk dividing the text length and at
+    one that does not, equals the plain CE; and both equal the
+    reference's."""
+    rcfg, pcfg = _cfgs("internvl2-1b", "float32")
+    rp, pp = _weights("internvl2-1b")
+    b = _family_batch(rcfg, 2, 64, 1, labels=True)
+    l1, _ = PM.loss_fn(pp, pcfg, _t(b), fuse_ce=False)
+    l2, _ = PM.loss_fn(pp, pcfg, _t(b), fuse_ce=True, ce_chunk=16)
+    l3, _ = PM.loss_fn(pp, pcfg, _t(b), fuse_ce=True, ce_chunk=13)
+    assert float(l1) == pytest.approx(float(l2), abs=1e-5)
+    assert float(l1) == pytest.approx(float(l3), abs=1e-5)
+    want, _ = RM.loss_fn(rp, rcfg, _j(b), fuse_ce=True, ce_chunk=13)
+    assert float(l3) == pytest.approx(float(want), abs=1e-5)
+
+
+def test_encoder_has_forward_and_loss_only():
+    _, pcfg = _cfgs("hubert-xlarge", "float32")
+    _, pp = _weights("hubert-xlarge")
+    b = _t(_family_batch(pcfg, 1, 8, 2))
+    for call in (lambda: PM.prefill(pp, pcfg, b, 16),
+                 lambda: PM.init_cache(pcfg, 1, 16, device="cpu"),
+                 lambda: PM.decode_step(pp, pcfg, b["embeds"], {}, 0)):
+        with pytest.raises(ValueError, match="encoder-only"):
+            call()
+
+
+def test_cast_params_keeps_the_router_float32_and_the_numbers():
+    _, pcfg = _cfgs("granite-moe-1b-a400m", "bfloat16")
+    _, pp = _weights("granite-moe-1b-a400m")
+    toks = torch.from_numpy(_tokens(pcfg, 2, 16, 3))
+    cast = PM.cast_params(pp, pcfg)
+    moe = cast["blocks"][0]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert moe["up"].dtype == moe["down"].dtype == torch.bfloat16
+    a, aux_a = PM.forward(pp, pcfg, {"tokens": toks})
+    b, aux_b = PM.forward(cast, pcfg, {"tokens": toks})
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)

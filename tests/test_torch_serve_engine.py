@@ -1,18 +1,21 @@
 """Port parity: ``repro_torch.serve.engine`` against the JAX package's.
 
 * Counterparts of ``tests/test_serve_admission.py``, of
-  ``tests/test_serve_ragged.py`` for the dense family (``qwen3-1.7b``,
-  the one the port runs) and of ``tests/test_substrates.py``'s engine
-  cases, on the port, with the reference's assertions and the
-  reference's seed-0 weights (``params_from_jax``), on the CPU.
+  ``tests/test_serve_ragged.py`` for the KV-cache families (dense
+  ``qwen3-1.7b`` and moe ``qwen3-moe-30b-a3b``, reduced) and of
+  ``tests/test_substrates.py``'s engine cases, on the port, with the
+  reference's assertions and the reference's seed-0 weights
+  (``params_from_jax``), on the CPU.
 * Port against reference: the same prompts and weights give equal
   ``out_tokens`` in float32 compute and a float32 cache, baseline and
-  speculative (``spec_len`` 4).
+  speculative (``spec_len`` 4), for both families.
 * C6: after a warm-up run in each package, the region names the marker
   is set to during a second, identical run are the same in both, and
-  none is a model-inner region (the reference's jitted steps run their
-  regions only while being traced; the port runs its steps inside
-  ``regions.opaque()``).
+  none is a model-inner region (``moe_router`` and ``moe_ffn``
+  included; the reference's jitted steps run their regions only while
+  being traced; the port runs its steps inside ``regions.opaque()``).
+* The launcher serves a reduced dense and a reduced vlm config
+  (``internvl2-1b``, tokens only, as the reference's launcher sends).
 * Device handling: the engine and the launcher default to the GPU and
   raise without one; params on another device are refused.
 """
@@ -22,8 +25,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from _torch_serve_pkgs import (PORT, REF, make_engine, prompts, setup,
-                               weights)
+from _torch_serve_pkgs import (KV_ARCHS, PORT, REF, make_engine, prompts,
+                               setup, weights)
 from repro_torch.core import regions as regions_mod
 from repro_torch.core.sampler import SampleBuffer
 from repro_torch.launch import serve as launch_serve
@@ -34,12 +37,17 @@ from repro_torch.serve.engine import (Engine, PhaseEnergyAccountant,
                                       ServeConfig, ServeTimeoutError)
 
 MODEL_INNER = {"embed", "attn", "attn_decode", "attn_score", "ffn",
-               "lm_head"}
+               "moe_router", "moe_ffn", "lm_head"}
 
 
 @pytest.fixture(scope="module")
 def arch_setup():
     return setup(PORT)
+
+
+@pytest.fixture(scope="module", params=KV_ARCHS)
+def kv_setup(request):
+    return setup(PORT, arch=request.param)
 
 
 def _engine(cfg, params, scfg, **kw):
@@ -307,8 +315,8 @@ def _run_staggered(make, prompts_, max_new=8):
     return [r.out_tokens for r in reqs], eng
 
 
-def test_ragged_staggered_matches_sequential(arch_setup):
-    cfg, params = arch_setup
+def test_ragged_staggered_matches_sequential(kv_setup):
+    cfg, params = kv_setup
     ps = _prompts(cfg)
     seq = [_run_alone(cfg, params, p, i) for i, p in enumerate(ps)]
     got, _ = _run_staggered(lambda: _engine(cfg, params, _scfg()), ps)
@@ -316,8 +324,8 @@ def test_ragged_staggered_matches_sequential(arch_setup):
         assert got[i] == seq[i], f"request {i} diverged"
 
 
-def test_admission_mid_decode_leaves_active_request_unchanged(arch_setup):
-    cfg, params = arch_setup
+def test_admission_mid_decode_leaves_active_request_unchanged(kv_setup):
+    cfg, params = kv_setup
     ps = _prompts(cfg, lengths=(9, 6))
     base = _run_alone(cfg, params, ps[0], 0, max_new=10)
     eng = _engine(cfg, params, _scfg())
@@ -334,8 +342,8 @@ def test_admission_mid_decode_leaves_active_request_unchanged(arch_setup):
     assert r0.out_tokens == base, "mid-decode admission corrupted r0"
 
 
-def test_ragged_depths_decode_to_distinct_positions(arch_setup):
-    cfg, params = arch_setup
+def test_ragged_depths_decode_to_distinct_positions(kv_setup):
+    cfg, params = kv_setup
     ps = _prompts(cfg, lengths=(2, 20), seed=7)
     solo = [_run_alone(cfg, params, p, i, max_new=6)
             for i, p in enumerate(ps)]
@@ -351,8 +359,8 @@ def test_ragged_depths_decode_to_distinct_positions(arch_setup):
     assert [r.out_tokens for r in reqs] == solo
 
 
-def test_slot_reuse_does_not_inherit_previous_state(arch_setup):
-    cfg, params = arch_setup
+def test_slot_reuse_does_not_inherit_previous_state(kv_setup):
+    cfg, params = kv_setup
     ps = _prompts(cfg, lengths=(8, 5), seed=11)
     solo_b = _run_alone(cfg, params, ps[1], 1, max_new=6)
     eng = _engine(cfg, params, _scfg())
@@ -379,8 +387,8 @@ def _scfg_spec(spec_len=4, **kw):
                        spec_len=spec_len, spec_window=8, spec_sinks=2, **kw)
 
 
-def test_speculative_staggered_token_exact(arch_setup):
-    cfg, params = arch_setup
+def test_speculative_staggered_token_exact(kv_setup):
+    cfg, params = kv_setup
     ps = _prompts(cfg)
     base, _ = _run_staggered(lambda: _engine(cfg, params, _scfg()), ps)
     spec, eng = _run_staggered(lambda: _engine(cfg, params, _scfg_spec()),
@@ -400,8 +408,8 @@ def test_speculative_staggered_token_exact(arch_setup):
     assert cov["counters"]["drafted"] == rep.drafted
 
 
-def test_speculative_narrow_window_rolls_back_token_exact(arch_setup):
-    cfg, params = arch_setup
+def test_speculative_narrow_window_rolls_back_token_exact(kv_setup):
+    cfg, params = kv_setup
     ps = _prompts(cfg, lengths=(13, 4, 9), seed=3)
     base, _ = _run_staggered(lambda: _engine(cfg, params, _scfg()), ps,
                              max_new=10)
@@ -495,17 +503,18 @@ def _first_divergence(got, want, ps, cfg, params):
     return "streams equal"
 
 
+@pytest.mark.parametrize("arch", KV_ARCHS)
 @pytest.mark.parametrize("spec_len", [0, 4], ids=["baseline", "spec4"])
-def test_tokens_equal_reference_float32(spec_len):
+def test_tokens_equal_reference_float32(spec_len, arch):
     ps = prompts(256, (7, 3, 11), 42)
     streams = {}
     for pkg in (REF, PORT):
-        cfg, params = setup(pkg, "float32")
+        cfg, params = setup(pkg, "float32", arch)
         streams[pkg.name], eng = _run_staggered(
             lambda: make_engine(pkg, cfg, params, _f32_scfg(spec_len)), ps)
         if spec_len:
             assert eng.report.drafted > 0
-    pcfg, pp = setup(PORT, "float32")
+    pcfg, pp = setup(PORT, "float32", arch)
     assert streams["port"] == streams["ref"], _first_divergence(
         streams["port"], streams["ref"], ps, pcfg, pp)
 
@@ -534,15 +543,16 @@ def _marker_names(pkg, cfg, params, scfg, ps):
     return [names[i] for i in marker.seen]
 
 
+@pytest.mark.parametrize("arch", KV_ARCHS)
 @pytest.mark.parametrize("spec_len", [0, 4], ids=["baseline", "spec4"])
-def test_marker_sequence_equals_reference(spec_len):
+def test_marker_sequence_equals_reference(spec_len, arch):
     ps = prompts(256, (4, 6, 3), 5)
     scfg = {pkg.name: pkg.engine.ServeConfig(
         max_batch=2, max_len=32, eos_token=-1, spec_len=spec_len,
         spec_window=8, spec_sinks=2) for pkg in (REF, PORT)}
     seqs = {}
     for pkg in (REF, PORT):
-        cfg, params = setup(pkg)
+        cfg, params = setup(pkg, arch=arch)
         _marker_names(pkg, cfg, params, scfg[pkg.name], ps)    # warm-up
         seqs[pkg.name] = _marker_names(pkg, cfg, params, scfg[pkg.name], ps)
     assert seqs["port"] == seqs["ref"]
@@ -599,12 +609,12 @@ class _HostWaits(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("spec_len", [0, 4], ids=["baseline", "spec4"])
-def test_engine_steps_never_wait_for_the_device(arch_setup, spec_len):
+def test_engine_steps_never_wait_for_the_device(kv_setup, spec_len):
     """The masked decode, draft and verify steps queue their work without
     a host wait (the write mask's restore is a select; rope's frequencies
     are made once), so on the GPU the host runs ahead of the device until
     the engine reads the sampled tokens."""
-    cfg, params = arch_setup
+    cfg, params = kv_setup
     eng = _engine(cfg, params, _scfg_spec(spec_len))
     eng.add_request(Request(0, _prompt(cfg, 6), max_new_tokens=8))
     toks = torch.zeros((3, 1), dtype=torch.int32)
@@ -642,9 +652,10 @@ def test_engine_refuses_params_on_another_device(arch_setup):
         Engine(cfg, params, _scfg(), device="meta")
 
 
-def test_launcher_serves_every_request(capsys):
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "internvl2-1b"])
+def test_launcher_serves_every_request(capsys, arch):
     done, engine, sess = launch_serve.main(
-        ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+        ["--arch", arch, "--smoke", "--device", "cpu",
          "--requests", "5", "--new-tokens", "6"])
     assert len(done) == 5 and all(r.done for r in done)
     assert all(len(r.out_tokens) == 6 for r in done)

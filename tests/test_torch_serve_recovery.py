@@ -1,6 +1,8 @@
 """Port parity: ``repro_torch.serve.recovery`` — the counterparts of
 ``tests/test_serve_recovery.py`` for the dense family (``qwen3-1.7b``)
-on the port, and snapshots that cross between the packages: a snapshot
+on the port (kill mid-speculation for the moe family too,
+``qwen3-moe-30b-a3b``, as the reference's ``SPEC_ARCHS`` has it), and
+snapshots that cross between the packages: a snapshot
 written by the reference's engine, restored by the port's and run to the
 end, gives the reference's uninterrupted tokens (float32 compute and
 cache), and the reverse.
@@ -9,8 +11,8 @@ cache), and the reverse.
 import numpy as np
 import pytest
 
-from _torch_serve_pkgs import (PORT, REF, make_engine, prompts, restore,
-                               setup)
+from _torch_serve_pkgs import (KV_ARCHS, PORT, REF, make_engine, prompts,
+                               restore, setup)
 from repro_torch.core import exchange as ex
 from repro_torch.core import faults
 from repro_torch.core.faults import (FaultPlan, InjectedCrash, LeafFault,
@@ -191,8 +193,9 @@ def test_overload_ladder_sheds_and_widens(arch_setup):
     assert rep.rejected_full <= rep.shed
 
 
-def test_kill_restore_mid_speculation_bit_exact(arch_setup, tmp_path):
-    cfg, params = arch_setup
+@pytest.mark.parametrize("arch", KV_ARCHS)
+def test_kill_restore_mid_speculation_bit_exact(arch, tmp_path):
+    cfg, params = setup(PORT, arch=arch)
     scfg = ServeConfig(max_batch=2, max_len=64, eos_token=-1,
                        step_energy=1.0, spec_len=4, spec_window=8,
                        spec_sinks=2)

@@ -1,6 +1,8 @@
 """Port parity: the training path (``repro_torch.train.step``,
 ``train.trainer``, ``launch.train`` and the train-state converters)
-against the JAX package's, on reduced qwen3-1.7b on the CPU.
+against the JAX package's, on reduced qwen3-1.7b on the CPU, and on
+reduced granite-moe-1b-a400m (the moe family: steps with their
+``metrics["aux"]``, the state round trip, the launcher).
 
 * Three steps of ``make_train_step`` from one converted state: losses
   within rel 1e-5 of the reference's and parameters within atol
@@ -65,9 +67,9 @@ def _keep_sigterm():
     signal.signal(signal.SIGTERM, prev)
 
 
-def _cfgs(**kw):
-    return (r_registry.get_config(ARCH).reduced().replace(**kw),
-            p_registry.get_config(ARCH).reduced().replace(**kw))
+def _cfgs(arch=ARCH, **kw):
+    return (r_registry.get_config(arch).reduced().replace(**kw),
+            p_registry.get_config(arch).reduced().replace(**kw))
 
 
 def _ref_state(rcfg, ropt, seed=0, compression=False):
@@ -530,3 +532,67 @@ def test_launcher_asks_for_the_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="no GPU"):
         launch_train.main(["--arch", ARCH, "--smoke",
                            "--ckpt-dir", str(tmp_path)])
+
+
+# -- the moe family (granite-moe-1b-a400m) ------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+
+
+def test_moe_train_steps_match_reference():
+    """Three float32 steps from one converted state: losses and the MoE
+    aux loss (``metrics["aux"]``) within rel 1e-5 of the reference's step,
+    parameters as in ``test_train_steps_match_reference``."""
+    rcfg, pcfg = _cfgs(MOE_ARCH, compute_dtype="float32")
+    kw = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+    ropt, popt = r_adamw.AdamWConfig(**kw), AdamWConfig(**kw)
+    rs = _ref_state(rcfg, ropt)
+    ps = train_state_from_jax(rs, pcfg, device="cpu")
+    rstep = jax.jit(r_step.make_train_step(rcfg, ropt))
+    pstep = make_train_step(pcfg, popt)
+    data = SyntheticTokens(vocab_size=pcfg.vocab_size, seq_len=32,
+                           global_batch=8)
+    lrs = []
+    for i in range(3):
+        b = data.batch(i)
+        rs, rm = rstep(rs, _ref_batch(b))
+        ps, pm = pstep(ps, _port_batch(b))
+        if i == 0:
+            g1 = _first_grads(rs, ropt)
+            noise = [(np.abs(g) < 10 * popt.eps) & (g != 0) for g in g1]
+        assert float(rm["aux"]) > 0
+        for k in ("loss", "ce", "aux"):
+            assert float(pm[k]) == pytest.approx(float(rm[k]),
+                                                 rel=LOSS_RTOL), k
+        lrs.append(float(rm["lr"]))
+    n_noise = _check_params(_params(ps, pcfg), _params(rs), noise, popt,
+                            lrs)
+    assert n_noise < 1e-3 * sum(x.size for x in g1)
+
+
+@pytest.mark.parametrize("compression", [False, True])
+def test_moe_train_state_round_trip_is_bitwise(compression):
+    rcfg, pcfg = _cfgs(MOE_ARCH)
+    rs = _ref_state(rcfg, r_adamw.AdamWConfig(), seed=3,
+                    compression=compression)
+    ps = train_state_from_jax(rs, pcfg, device="cpu")
+    assert tuple(ps["params"]["blocks"][0]["moe"]["up"].shape) == (
+        pcfg.n_experts, pcfg.d_model, pcfg.moe_d_ff)
+    back = train_state_to_jax(ps, pcfg)
+    assert jax.tree.structure(back) == jax.tree.structure(rs)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(rs)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+def test_moe_launcher_on_the_cpu(tmp_path, capsys):
+    result, sess, trainer = launch_train.main(
+        ["--arch", MOE_ARCH, "--smoke", "--device", "cpu", "--steps", "3",
+         "--ckpt-dir", str(tmp_path), "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert result["final_step"] == 3
+    assert f"arch={MOE_ARCH}-smoke" in out
+    assert all(np.isfinite(m["loss"]) for m in result["metrics"])
+    names = {n for n, e in sess.estimates().by_name().items()
+             if e.n_samples}
+    assert names <= {"data_load", "train_step", "checkpoint", "<other>"}
