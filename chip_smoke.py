@@ -52,8 +52,8 @@ runs these phases, and fails (non-zero exit) if any check fails:
               shape, dh 64 and 80, a ragged length, non-causal, float32,
               a transposed q as the model passes it, S=77, float16,
               bf16 at dh 32, and the later families' shapes: GQA group
-              7 at dh 64, MHA at dh 80 non-causal, group 8 at dh 128;
-              each with its route and TFLOP/s) and
+              7 at dh 64, MHA at dh 80 non-causal, group 8 at dh 128,
+              MHA 32/32 at dh 64; each with its route and TFLOP/s) and
               ``rmsnorm`` (block-norm and qk-norm shapes, odd widths,
               bfloat16 and float32, each with its launch plan); kernel,
               plain and library-call times and the card's bound for the
@@ -120,7 +120,21 @@ runs these phases, and fails (non-zero exit) if any check fails:
    internvl2-1b (256 patch embeddings + 1 792 tokens: prefill + 32
    decode steps; the serve launcher; fused vs plain CE with patches at
    B=2 × 2048); hubert-xlarge (48 layers, non-causal: forward and
-   loss_fn on B=4 × 2048 frame embeddings, flash vs full).
+   loss_fn on B=4 × 2048 frame embeddings, flash vs full);
+10. the recurrent families at full width and depth through phases 6-8
+   (``hybrid_launches``, ``hybrid_serve_launches``,
+   ``hybrid_train_launches``, ``xlstm_launches``,
+   ``xlstm_serve_launches``, ``xlstm_train_launches``): zamba2-1.2b (38
+   Mamba2 layers in 6 groups of 6 and a tail of 2, the weight-shared
+   attention block after each group through the flash kernel: 6
+   launches a prefill) and xlstm-125m (6 mLSTM + sLSTM pairs, no
+   attention: 0 launches). Prefill + 32 decode steps held against the
+   full-attention prefill and against a forward over the prompt and
+   the decoded tokens; serve with every check, float32 speculation also
+   with rejected drafts (the window-start checkpoint, its rollback and
+   ``serve/replay`` run); train with every check (card vs CPU on a
+   reduced zamba2 with a tail). The sLSTM scan is timed and traced
+   alone.
 
 Each phase's seconds are printed on a line of their own. The line
 before the last is a JSON object listing every kernel; the last
@@ -429,10 +443,12 @@ FLASH_CASES = [
     # The later families' prefill shapes, q transposed as the model
     # passes it: internvl2-1b (GQA group 7), hubert-xlarge (MHA at dh 80,
     # non-causal), qwen3-moe-30b-a3b (group 8 at dh 128; granite-moe's
-    # 16/8 at dh 64 is "dh64" above).
+    # 16/8 at dh 64 is "dh64" above), zamba2-1.2b (MHA at dh 64).
     ("gqa7", 4, 14, 2, 2048, 64, True, "bfloat16", "bshd"),
     ("mha80nc", 4, 16, 16, 2048, 80, False, "bfloat16", "bshd"),
     ("gqa8", 4, 32, 4, 2048, 128, True, "bfloat16", "bshd"),
+    # zamba2-1.2b's weight-shared attention block: MHA 32/32 at dh 64.
+    ("mha64", 4, 32, 32, 2048, 64, True, "bfloat16", "bshd"),
 ]
 # [n, d]: block norms [B·S, d_model] and qk-norm [B·H·S, dh] of the
 # model's prefill, then odd widths.
@@ -1568,7 +1584,12 @@ def stream_order_check(prof, kernel_s=0.5, after_s=0.1):
 
 MODEL_ARCH = "qwen3-1.7b"
 MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_DECODE = 4, 2048, 2080, 32
-MODEL_REGIONS = ("embed", "attn", "ffn", "moe_router", "moe_ffn", "lm_head")
+# The recurrent regions, model-inner in serving and training as the rest.
+RECURRENT_REGIONS = ("ssm_proj", "ssm_scan", "ssm_out", "ssm_decode",
+                     "mlstm_scan", "slstm_scan", "mlstm_decode",
+                     "shared_attn")
+MODEL_REGIONS = (("embed", "attn", "ffn", "moe_router", "moe_ffn")
+                 + RECURRENT_REGIONS + ("lm_head",))
 # The later slices' families, each at full width: granite-moe at full
 # depth; qwen3-moe's 48 layers cut to 8 (its ~3·10^10 parameters are 58 GB
 # in bf16 before the float32 draw they are cast from); internvl2 with its
@@ -1942,44 +1963,293 @@ def _trace(fn):
 
 def model_breakdown(m):
     """Where the model path's device time goes, from torch.profiler traces
-    of one flash prefill and one decode step: device ms by region (attn
-    holds ln1, the q/k/v/o projections, qk-norm, rope, the flash kernel
-    and the cache write; ffn holds ln2 and the MLP), kernels launched,
-    and the device's busy share (a MoE block's FFN is in ``moe_router``
-    and ``moe_ffn``). Measures only; checks nothing; a trace with no
-    device events is reported as not measured."""
+    of one flash prefill (not for xlstm: its sLSTM loop is ~4·10^4
+    launches a prefill, and ``slstm_breakdown`` traces that loop alone)
+    and one decode step: device ms by region (attn holds ln1, the q/k/v/o
+    projections, qk-norm, rope, the flash kernel and the cache write; ffn
+    holds ln2 and the MLP; zamba2's shared block is ``shared_attn``),
+    kernels launched, and the device's busy share (a MoE block's FFN is in
+    ``moe_router`` and ``moe_ffn``). Measures only; checks nothing; a
+    trace with no device events is reported as not measured."""
     from repro_torch.models import model as M
     p, cfg, batch = m["params"], m["cfg"], m["batch"]
-    spans, n_kern, busy, wall, kern = _trace(
-        lambda: M.prefill(p, cfg, batch, MODEL_MAX_LEN, attn_impl="flash"))
-    if busy <= 0:
-        log("model breakdown: device time not measured (the profiler saw "
-            "no device events)")
-        return None
-    flash = sum(e.self_device_time_total for e in kern
-                if "fa_wgmma_kernel" in e.key or "fa_fwd_kernel" in e.key
-                ) / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"model breakdown {cfg.name}, one flash prefill: device ms by "
-        "region "
-        + ", ".join(f"{r} {spans[r]:.3f}" for r in MODEL_REGIONS
-                    if r in spans)
-        + f" (sum {sum(spans.get(r, 0.0) for r in MODEL_REGIONS):.3f}); "
-        f"{n_kern} kernels, device busy {busy:.3f} ms of {wall:.3f} ms "
-        f"profiled wall (busy share {busy / wall:.3f}); flash kernel "
-        f"{flash:.3f} ms; top kernels: "
-        + "; ".join(f"{e.key[:48]} x{e.count} "
-                    f"{e.self_device_time_total / 1e3:.3f} ms" for e in top))
+    out = {}
+    if cfg.family != "ssm":
+        spans, n_kern, busy, wall, kern = _trace(
+            lambda: M.prefill(p, cfg, batch, MODEL_MAX_LEN,
+                              attn_impl="flash"))
+        if busy <= 0:
+            log("model breakdown: device time not measured (the profiler "
+                "saw no device events)")
+            return None
+        flash = sum(e.self_device_time_total for e in kern
+                    if "fa_wgmma_kernel" in e.key or "fa_fwd_kernel" in e.key
+                    ) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+        log(f"model breakdown {cfg.name}, one flash prefill: device ms by "
+            "region "
+            + ", ".join(f"{r} {spans[r]:.3f}" for r in MODEL_REGIONS
+                        if r in spans)
+            + f" (sum {sum(spans.get(r, 0.0) for r in MODEL_REGIONS):.3f}); "
+            f"{n_kern} kernels, device busy {busy:.3f} ms of {wall:.3f} ms "
+            f"profiled wall (busy share {busy / wall:.3f}); flash kernel "
+            f"{flash:.3f} ms; top kernels: "
+            + "; ".join(f"{e.key[:48]} x{e.count} "
+                        f"{e.self_device_time_total / 1e3:.3f} ms"
+                        for e in top))
+        out = dict(prefill_region_ms=spans, prefill_busy_ms=busy,
+                   flash_ms=flash)
     spans_d, n_kern_d, busy_d, wall_d, _ = _trace(
         lambda: M.decode_step(p, cfg, m["tok"], m["cache"], m["cur_len"]))
     log(f"model breakdown {cfg.name}, one decode step (B={MODEL_BATCH}, "
         f"cache {MODEL_MAX_LEN}): {n_kern_d} kernels, device busy "
         f"{busy_d:.3f} ms of {wall_d:.3f} ms profiled wall (busy share "
-        f"{busy_d / wall_d:.3f}); device ms by region "
+        + (f"{busy_d / wall_d:.3f}" if busy_d > 0 else "not measured")
+        + "); device ms by region "
         + ", ".join(f"{r} {v:.3f}" for r, v in sorted(spans_d.items())))
-    return dict(prefill_region_ms=spans, prefill_busy_ms=busy,
-                flash_ms=flash, decode_kernels=n_kern_d,
-                decode_busy_ms=busy_d)
+    return dict(out, decode_kernels=n_kern_d, decode_busy_ms=busy_d)
+
+
+HYBRID_ARCH, SSM_ARCH = "zamba2-1.2b", "xlstm-125m"
+# The recurrent decode steps are held against a forward over the prompt
+# and the decoded tokens, 2 080 positions: the scans need the length to
+# be a multiple of their chunk (min(chunk, S)), so that forward runs at
+# the largest chunk up to the default 128 that divides it (32).
+# Float32, full width and depth: flash against full attention and the
+# decode steps against the forward, as a share of max |.| (the
+# reference's own decode-vs-forward limit at reduced size is 1e-4).
+RECURRENT_F32_REL = 1e-3
+# bf16: decode step 1 against the forward at its position, as a share of
+# max |logit|, within this multiple of the scans' bf16 rounding spread
+# measured in the same run (the prompt's last logits at two chunk
+# lengths; NVIDIA H100 80GB HBM3, 700.00 W: zamba2 0.0306 against a
+# spread of 0.0346, xlstm 0.0393 against 0.0464).
+RECURRENT_BF16_SPREADS = 2
+# The cache leaves kept in the cache dtype; every other recurrent leaf
+# (state, stabilisers, normalisers) is float32, as in the reference.
+CACHE_DTYPE_LEAVES = ("conv_x", "conv_bc", "k", "v")
+
+
+def recurrent_model_phase(dev, arch):
+    """``prefill`` + ``MODEL_DECODE`` greedy ``decode_step``s of a
+    recurrent family at full width and depth (zamba2-1.2b: 38 Mamba2
+    layers in 6 groups of 6 and a tail of 2, the weight-shared attention
+    block after each group; xlstm-125m: 6 mLSTM + sLSTM pairs; bf16
+    compute, random float32 master weights from seed 0 held as a bf16
+    copy, B=4 × 2048 random tokens). Launch counters are set to 0 just
+    before the prefill and read after the decode steps: zamba2's prefill
+    launches flash once per group (6; the tail has no attention), xlstm
+    none, and decode none.
+
+    Checks, bf16: finite outputs of the expected shapes; the cache's
+    dtypes after the decode steps (conv tails and K/V bf16, every other
+    leaf float32); the flash
+    prefill's logits within ``MODEL_REL_TOL`` of max |logit| of the same
+    prefill through ``attn_impl="full"``, and the cache of everything
+    ahead of the first attention (zamba2's first group and its shared
+    block's K/V; all of xlstm's) bitwise equal; decode step 1 against a
+    forward over the prompt and the decoded tokens within
+    ``RECURRENT_BF16_SPREADS`` times the bf16 rounding spread of the
+    scans (the same prompt's last logits at chunk 128 and at the
+    forward's chunk). The rest of the cache and the later decode steps
+    are printed: through 2 048 recurrent steps bf16 rounding moves
+    more than 5% of max |logit| (xlstm: 15%). Float32 (the same weights,
+    cast up): the flash and full prefills' logits and every cache leaf,
+    and every decode step against the forward, within
+    ``RECURRENT_F32_REL`` of max |.|. Returns the measurements."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+    from repro_torch.tree import stacked_paths, tree_leaves, tree_map
+    cfg = get_config(arch)
+    B, S, T, steps = MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN, MODEL_DECODE
+    hybrid = cfg.family == "hybrid"
+    n_attn = cfg.n_layers // cfg.attn_every if hybrid else 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p, n_params, draw_s = _draw(cfg, dev)
+    shape = (f"{n_attn} groups of {cfg.attn_every} Mamba2 layers + a tail "
+             f"of {cfg.n_layers - n_attn * cfg.attn_every} (d_in "
+             f"{cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, SSM "
+             f"head {cfg.ssm_head_dim}), shared attention H={cfg.n_heads} "
+             f"KV={cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff}"
+             if hybrid else f"{cfg.n_layers // 2} mLSTM + sLSTM pairs, "
+             f"H={cfg.n_heads} dh={cfg.head_dim}")
+    log(f"model: {arch} {cfg.family} {cfg.n_layers} layers d_model="
+        f"{cfg.d_model} {shape} vocab={cfg.vocab_size}: {n_params} "
+        f"parameters drawn and cast to bf16 in {draw_s:.2f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = _model_batch(cfg, B, S, g, dev)
+
+    M.prefill(p, cfg, batch, T, attn_impl="flash")       # warm-up
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    logits, cache, cur = M.prefill(p, cfg, batch, T, attn_impl="flash")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = fa_ops.flash_attention.launches
+    prefill_cache = tree_map(torch.clone, cache)
+    cur_len = cur.to(torch.int32).expand(B).contiguous()     # [B]
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    fed, outs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step_logits, cache = M.decode_step(p, cfg, tok, cache, cur_len)
+        fed.append(tok)
+        outs.append(step_logits)
+        tok = step_logits[:, -1].argmax(-1, keepdim=True)
+        cur_len = cur_len + 1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    check(after_prefill == n_attn, f"model {arch}: flash launches per "
+          f"prefill {after_prefill} == {n_attn}")
+    check(launches == {"sample_attr_fold": 0, "flash_attention": n_attn,
+                       "rmsnorm": 0},
+          f"model {arch}: launches in prefill + decode {launches}")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"model {arch}: prefill logits")
+    check(all(tuple(o.shape) == (B, 1, cfg.vocab_size)
+              and bool(torch.isfinite(o).all()) for o in outs),
+          f"model {arch}: decode logits")
+    check(int(cur_len[0]) == S + steps, f"model {arch}: cur_len after decode")
+    dtypes = {path[-1]: str(t.dtype).replace("torch.", "") for path, t in
+              zip(stacked_paths(cache), tree_leaves(cache))}
+    check(all(d == ("bfloat16" if k in CACHE_DTYPE_LEAVES else "float32")
+              for k, d in dtypes.items()),
+          f"model {arch}: cache dtypes after decode {dtypes}")
+
+    def by_kind(a, b):
+        """max over leaves of _max_rel, by leaf name (k, v, h, conv_x,
+        ...)."""
+        out = {}
+        for path, x, y in zip(stacked_paths(a), tree_leaves(a),
+                              tree_leaves(b)):
+            out[path[-1]] = max(out.get(path[-1], 0.0), _max_rel(x, y))
+        return out
+
+    # bf16: flash against full.
+    full_logits, full_cache, _ = M.prefill(p, cfg, batch, T,
+                                           attn_impl="full")
+    rel = _max_rel(logits, full_logits)
+    check(rel <= MODEL_REL_TOL, f"model {arch}: flash vs full prefill "
+          f"logits {rel:.4f} of max |logit|")
+    ahead = [[c["groups"][0], c["shared_attn"][0]] if hybrid else c
+             for c in (prefill_cache, full_cache)]
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(ahead[0]),
+                                                tree_leaves(ahead[1]))),
+          f"model {arch}: cache ahead of the first attention bitwise equal")
+    cache_rel = by_kind(prefill_cache, full_cache)
+    del full_cache, prefill_cache
+    # bf16: the decode steps against a forward over the prompt and the
+    # decoded tokens, and the scans' rounding spread at the same chunks.
+    ext = {"tokens": torch.cat([batch["tokens"]] + fed, dim=1)}
+    chunk = math.gcd(S + steps, 128)
+    fwd, _ = M.forward(p, cfg, ext, attn_impl="flash", ssd_chunk=chunk)
+    dec_rel = [_max_rel(o[:, 0], fwd[:, S + i]) for i, o in enumerate(outs)]
+    spread = _max_rel(fwd[:, S - 1], logits[:, 0])
+    del fwd
+    check(dec_rel[0] <= RECURRENT_BF16_SPREADS * spread, f"model {arch} "
+          f"bf16: decode step 1 vs the forward {dec_rel[0]:.4f} of max "
+          f"|logit|, above {RECURRENT_BF16_SPREADS} x the scans' spread "
+          f"{spread:.4f}")
+    log(f"model {arch} bf16: flash vs full prefill: logits {rel:.4f} of "
+        f"max |logit| ({full_logits.float().abs().max().item():.3f}; "
+        f"tolerance {MODEL_REL_TOL}), the cache ahead of the first "
+        f"attention bitwise equal, every cache leaf by name (measured, not "
+        f"checked): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                  cache_rel.items())
+        + f"; the {steps} decode steps vs a forward over the prompt and "
+        f"the decoded tokens ({S + steps} positions, chunk {chunk}): step "
+        f"1 {dec_rel[0]:.4f} of max |logit| (tolerance "
+        f"{RECURRENT_BF16_SPREADS} x the bf16 rounding spread of the scans:"
+        f" the prompt's last logits at chunk 128 vs chunk {chunk} "
+        f"{spread:.4f}); measured, not checked: worst {max(dec_rel):.4f}, "
+        f"step {steps} {dec_rel[-1]:.4f}; cache dtypes {dtypes}")
+    del full_logits, outs
+    log(f"model {arch}: prefill B={B} S={S} {prefill_s * 1e3:.2f} ms "
+        f"({B * S / prefill_s:.1f} tokens/s), {after_prefill} flash "
+        f"launches; decode {steps} steps {decode_s * 1e3 / steps:.3f} ms "
+        f"per step ({B * steps / decode_s:.1f} tokens/s); peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB; launches in the main path "
+        f"{launches}")
+    result = dict(prefill_ms=prefill_s * 1e3, decode_ms=decode_s * 1e3 / steps,
+                  peak_bytes=peak, launches=launches, params=p, cfg=cfg,
+                  batch=batch, cache=cache, tok=tok, cur_len=cur_len - 1)
+
+    # float32, the same weights cast up: the numerics, checked.
+    cfg32 = cfg.replace(compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), p)
+    f32 = {}
+    for impl in ("flash", "full"):
+        f32[impl] = M.prefill(p32, cfg32, batch, T, attn_impl=impl,
+                              cache_dtype=torch.float32)[:2]
+    rel32 = _max_rel(f32["flash"][0], f32["full"][0])
+    cache32 = by_kind(f32["flash"][1], f32["full"][1])
+    c32, tok32, outs32 = f32["flash"][1], fed[0], []
+    del f32
+    cl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    for i in range(steps):
+        lg, c32 = M.decode_step(p32, cfg32, fed[i], c32, cl + i)
+        outs32.append(lg)
+    fwd32, _ = M.forward(p32, cfg32, ext, attn_impl="flash",
+                         ssd_chunk=chunk)
+    dec32 = [_max_rel(o[:, 0], fwd32[:, S + i]) for i, o in
+             enumerate(outs32)]
+    del p32, c32, fwd32, outs32
+    torch.cuda.empty_cache()
+    worst32 = max([rel32, max(dec32)] + list(cache32.values()))
+    check(worst32 <= RECURRENT_F32_REL, f"model {arch} float32: flash vs "
+          f"full {rel32:.2e}, cache {cache32}, decode vs forward "
+          f"{max(dec32):.2e} of max |.| (tolerance {RECURRENT_F32_REL})")
+    log(f"model {arch} float32 (the bf16 weights cast up): flash vs full "
+        f"prefill logits {rel32:.2e}, cache by name "
+        + ", ".join(f"{k} {v:.2e}" for k, v in cache32.items())
+        + f"; the {steps} decode steps (the bf16 run's tokens) vs the "
+        f"forward: worst {max(dec32):.2e}, step 1 {dec32[0]:.2e}, step "
+        f"{steps} {dec32[-1]:.2e} of max |.| (tolerance "
+        f"{RECURRENT_F32_REL})")
+    return result
+
+
+def slstm_breakdown(m):
+    """The sLSTM scan alone: pair 0's ``slstm_forward`` on a [B, S,
+    d_model] bf16 input at the model phase's shape, once untimed, once
+    timed (host wall around it, ending in a device sync) and once traced
+    (kernels, the device's busy share). Its strictly recurrent loop is S
+    steps of a dozen small operations each. Measures only."""
+    import torch
+    from repro_torch.models.xlstm import slstm_forward
+    p, cfg = m["params"]["pairs"][0]["s"], m["cfg"]
+    g = torch.Generator(device=m["tok"].device).manual_seed(2)
+    x = torch.randn(MODEL_BATCH, MODEL_PROMPT, cfg.d_model, generator=g,
+                    device=m["tok"].device).to(torch.bfloat16)
+    slstm_forward(p, cfg, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slstm_forward(p, cfg, x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _, n_kern, busy, wall, _ = _trace(lambda: slstm_forward(p, cfg, x))
+    n_pairs = cfg.n_layers // 2
+    log(f"slstm breakdown {cfg.name}: one sLSTM scan at B={MODEL_BATCH} "
+        f"S={MODEL_PROMPT} {ms:.2f} ms ({ms / MODEL_PROMPT * 1e3:.1f} us a "
+        f"step); x {n_pairs} pairs = {n_pairs * ms:.1f} ms of the "
+        f"{m['prefill_ms']:.1f} ms prefill; traced: {n_kern} kernels "
+        f"({n_kern / MODEL_PROMPT:.1f} a step), device busy {busy:.3f} ms "
+        f"of {wall:.3f} ms profiled wall (busy share "
+        + (f"{busy / wall:.3f})" if busy > 0 else "not measured: no device "
+           "events)"))
+    return dict(ms=ms, kernels=n_kern, busy_ms=busy, wall_ms=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -1990,7 +2260,7 @@ def model_breakdown(m):
 # tokens each, 4 slots, 256 cache positions.
 SERVE_REQUESTS, SERVE_NEW, SERVE_BATCH, SERVE_LEN = 8, 16, 4, 256
 SERVE_INNER = ("embed", "attn", "attn_decode", "attn_score", "ffn",
-               "moe_router", "moe_ffn", "lm_head")
+               "moe_router", "moe_ffn", "lm_head") + RECURRENT_REGIONS
 SERVE_SPEC = dict(spec_len=4, spec_window=16, spec_sinks=4)
 # Kill the engine in the second wave of requests (steps 16-31 at 16 new
 # tokens and 4 slots); snapshots every second step, the last at 20.
@@ -2313,11 +2583,64 @@ def serve_phase(dev, arch=MODEL_ARCH, *, full=True):
           "the baseline")
     log(f"{tag} (d) float32: speculative tokens equal the baseline "
         f"({sum(map(len, spec32.values()))} tokens); acceptance "
-        f"{rep.accepted}/{rep.drafted}; baseline {steps0} engine steps in "
-        f"{s0:.3f} s, speculative {e.step_count} in {s1:.3f} s")
+        f"{rep.accepted}/{rep.drafted}, {rep.rollbacks} windows cut; "
+        f"baseline {steps0} engine steps in {s0:.3f} s, speculative "
+        f"{e.step_count} in {s1:.3f} s")
+    if cfg.family in M.RECURRENT:
+        recurrent_rollback_check(tag, cfg32, p32, dev, traffic, base32)
     del e, p32
     torch.cuda.empty_cache()
     return dict(result, j_per_token=quote.j_per_token)
+
+
+def recurrent_rollback_check(tag, cfg, params, dev, traffic, base):
+    """Serve (d) for a recurrent family: float32 speculation with rejected
+    drafts. Every other draft pass proposes its runner-up token (the
+    draft step still advances the recurrent state on it), so windows
+    are cut: the engine restores its window-start checkpoint (a clone
+    of the cache) and replays the accepted tokens under
+    ``serve/replay``. Checks: rejected drafts and cut windows, replay
+    steps run, tokens equal the non-speculative run's."""
+    from repro_torch.core import regions
+    from repro_torch.serve.engine import Engine, ServeConfig
+    e = Engine(cfg, params, ServeConfig(
+        max_batch=SERVE_BATCH, max_len=SERVE_LEN, eos_token=-1,
+        cache_dtype="float32", **SERVE_SPEC), device=dev)
+    draft, calls, phases = e._draft_step, [0], []
+
+    def wrong_half_the_time(p, t, c, l, m):
+        logits, c = draft(p, t, c, l, m)
+        calls[0] += 1
+        if calls[0] % 2:
+            second = logits.topk(2, dim=-1).indices[..., 1:]
+            logits = logits.scatter(-1, second,
+                                    logits.amax(-1, True) + 1.0)
+        return logits, c
+
+    def spy(name):
+        phases.append(name)
+        return region(name)
+    e._draft_step = wrong_half_the_time
+    region = regions.region
+    regions.region = spy
+    try:
+        t0 = time.perf_counter()
+        got = _streams(e.run_until_drained(traffic()))
+        s = time.perf_counter() - t0
+    finally:
+        regions.region = region
+    rep = e.report
+    n_replay = phases.count("serve/replay")
+    check(rep.rejected > 0 and rep.rollbacks > 0,
+          f"{tag} (d): rejected {rep.rejected}, rollbacks {rep.rollbacks}")
+    check(n_replay > 0, f"{tag} (d): no serve/replay phase ran")
+    check(got == base, f"{tag} (d): speculative tokens with rejected drafts "
+          f"equal the baseline")
+    log(f"{tag} (d) float32 with rejected drafts (every other draft pass "
+        f"proposes its runner-up): tokens equal the baseline; acceptance "
+        f"{rep.accepted}/{rep.drafted}, {rep.rollbacks} windows rolled back "
+        f"to the window-start checkpoint, {n_replay} serve/replay phases; "
+        f"{e.step_count} engine steps in {s:.3f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2332,7 +2655,7 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 512
 # the reference's jitted step does (C7): the step's own and the model's.
 TRAIN_INNER = ("fwd_bwd", "grad_compress", "optimizer", "embed", "attn",
                "attn_score", "ffn", "moe_router", "moe_ffn", "lm_head",
-               "loss")
+               "loss") + RECURRENT_REGIONS
 TRAIN_LOSS_RTOL = 1e-5          # card against CPU, float32
 # (b) with compression: the share of elements whose int8 code the card and
 # the CPU may round apart (their residuals then differ by a quantum, not
@@ -2340,13 +2663,27 @@ TRAIN_LOSS_RTOL = 1e-5          # card against CPU, float32
 # fault in the card's compression moves nearly every element.
 TRAIN_FLIP_CAP = {1: 1e-4, 3: 2e-3}
 TRAIN_NOISE_CAP = 1e-3          # (b) without it: the rounding-led share
+# The recurrent families' own caps, each just above its reading on the
+# card (NVIDIA H100 80GB HBM3, 700.00 W; reduced xlstm, and reduced
+# zamba2 with a tail), where rounding alone parts as many elements
+# (scripts/train_rounding_witness.py: the port against itself from
+# parameters one ulp apart, on the CPU of the card's host). zamba2's
+# codes rounded apart after step 3: card 8 294-8 532 of 759 920, witness
+# 8 422 (xlstm keeps the cap above: card 478-485 of 247 812). Rounding-
+# led elements without compression: xlstm card 514-523, zamba2 1 631-
+# 1 652; the tiny first gradients alone (the rule of every family) are
+# 470 and 1 310 of them in the witness (zamba2's B/C and dt projections),
+# qwen3's 73, the same as its card reading.
+TRAIN_FLIP_CAP_BY_FAMILY = {"hybrid": {1: 1e-4, 3: 1.25e-2}}
+TRAIN_NOISE_CAP_BY_FAMILY = {"ssm": 2.5e-3, "hybrid": 2.5e-3}
 # (b), moe: the share of a step's routed tokens whose expert choice the
 # card and the CPU may round apart (float32 router, TF32 off).
 TRAIN_ROUTE_FLIP_CAP = 1e-3
-# (b), moe: an element whose gradient in some step differs between the
-# card and the CPU by more than this share of it is rounding-led (its
-# gradient is a cancellation of larger terms), and their share is capped
-# at TRAIN_MOE_NOISE_CAP (see train_phase).
+# (b), moe and the recurrent families: an element whose gradient in some
+# step differs between the card and the CPU by more than this share of it
+# is rounding-led (its gradient is a cancellation of larger terms); moe's
+# rounding-led share is capped at TRAIN_MOE_NOISE_CAP (see train_phase),
+# the recurrent families' at their own.
 TRAIN_GRAD_ROUND_RTOL = 1e-2
 TRAIN_MOE_NOISE_CAP = 1e-2
 FUSED_CE_RTOL = 1e-3            # fused against plain CE, bf16 logits
@@ -2435,7 +2772,8 @@ class _Routes:
         check(len(cpu) == len(card), f"router calls: {len(cpu)} on the "
               f"CPU, {len(card)} on the card")
         layer = {b["moe"]["router"].data_ptr(): i
-                 for i, b in enumerate(cpu_params["blocks"]) if "moe" in b}
+                 for i, b in enumerate(cpu_params.get("blocks", []))
+                 if "moe" in b}
         moved, n_tok, touched = 0, 0, set()
         for (w, a), (_, b) in zip(cpu, card):
             a, b = a.sort(-1).values, b.cpu().sort(-1).values
@@ -2524,6 +2862,27 @@ def fused_ce_check(what, params, cfg, batch, *, peak="backward"):
                 fused_fwd_peak=ce[True][3], plain_fwd_peak=ce[False][3])
 
 
+def _held_losses(cfg, data, params, dev):
+    """The losses of the launcher's initial weights (redrawn from seed 0)
+    and of ``params`` on the first and on the last step's batch of
+    ``data``, without a gradient: {"initial": [first, last], "trained":
+    [first, last]}."""
+    import torch
+    from repro_torch.models import model as M
+    out = {}
+    for name, p in (("trained", params), ("initial", None)):
+        if p is None:
+            p = M.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, device=dev)
+        with torch.no_grad():
+            out[name] = [float(M.loss_fn(p, cfg, {
+                k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()})[0])
+                for i in (0, TRAIN_STEPS - 1)]
+        del p
+    return out
+
+
 def train_breakdown(state, cfg, dev):
     """Where a full-size train step's device time goes, from a
     torch.profiler trace of one more step of the launcher's (B=8 × 512):
@@ -2562,16 +2921,23 @@ def train_phase(dev, arch=MODEL_ARCH):
     """Training (``repro_torch.launch.train``) on the card.
 
     (a) the launcher at full size with its defaults (``arch``: dense
-        qwen3-1.7b or moe granite-moe-1b-a400m; B=8 × 512, bf16, remat
+        qwen3-1.7b, moe granite-moe-1b-a400m, hybrid zamba2-1.2b or ssm
+        xlstm-125m; B=8 × 512, bf16, remat
         "full", profiling at 5 ms), 8 steps; launch
         counters set to 0 just before and read just after: no kernel of
         the port launches (neither flash nor rmsnorm has a gradient, and
         the host session folds on the host). Checks: finite losses, the
-        last below the first, ``opt["step"] == 8``, no sample and no
-        marker store in a step-inner or model-inner region (C7). Prints
-        the parameter count, ms and loss a step, tokens/s over steps 3-8,
-        peak memory and the attribution table.
-    (b) card against CPU: reduced ``arch``, float32, one initial state
+        last below the first on one batch — the trained weights' loss
+        below the first step's loss on the first step's batch and below
+        the initial weights' (redrawn from seed 0) on the last step's
+        batch (each step's logged loss is on a new batch, and how far
+        xlstm-125m's moves in 8 steps is within what rounding alone
+        spreads it: ROADMAP C9), ``opt["step"] == 8``, no
+        sample and no marker store in a step-inner or model-inner region
+        (C7). Prints the parameter count, ms and loss a step, tokens/s
+        over steps 3-8, peak memory and the attribution table.
+    (b) card against CPU: reduced ``arch`` (zamba2 with one layer more,
+        so that it has a tail), float32, one initial state
         drawn on the CPU and copied to the card, 3 steps each for
         ``accum_steps`` 1 and 2 and with compression: losses within rel
         1e-5; parameters within atol 1e-2·lr except where the update
@@ -2593,13 +2959,20 @@ def train_phase(dev, arch=MODEL_ARCH):
         of larger terms, at any step: measured on reduced granite-moe
         (accum 2), a step-2 gradient of 1.77e-7 on the CPU and 1.86e-7 on
         the card turned Adam's update -0.026 into 0.0001 (7.95e-6 apart,
-        2.6·atol). So for moe an element whose gradient in some step (from
-        each device's first moment) differs between the two by more than
-        ``TRAIN_GRAD_ROUND_RTOL`` of it is rounding-led too, and the
-        rounding-led elements are capped at ``TRAIN_MOE_NOISE_CAP`` of
-        all (measured 6.3e-4 at accum 1, 2.9e-3 at accum 2; a fault moves
-        nearly every element).
-    (c) kill and resume at reduced size on the card: 4 steps with a
+        2.6·atol). So for moe, and for the recurrent families (whose B/C
+        and dt projections' gradients are small with random weights, and
+        whose shared block's gradient sums its uses), an element whose
+        gradient in some step (from each device's first moment) differs
+        between the two by more than ``TRAIN_GRAD_ROUND_RTOL`` of it is
+        rounding-led too. moe's rounding-led elements are capped at
+        ``TRAIN_MOE_NOISE_CAP`` of all (measured 6.3e-4 at accum 1,
+        2.9e-3 at accum 2; a fault moves nearly every element); the
+        recurrent families' rounding-led elements and codes rounded apart
+        at the caps of ``TRAIN_NOISE_CAP_BY_FAMILY`` and
+        ``TRAIN_FLIP_CAP_BY_FAMILY``, each just above its card reading,
+        with what rounding alone parts on the CPU beside it.
+    (c) kill and resume at the reduced size of (b) on the card: 4 steps
+        with a
         checkpoint every 2, a fresh trainer resumes at step 4 and runs to
         6; its losses at steps 5-6 and its final state equal a straight
         6-step run bit for bit.
@@ -2610,7 +2983,8 @@ def train_phase(dev, arch=MODEL_ARCH):
         at vocab 49 155, are smaller than what its backward holds
         anyway, the forward's peak).
     (e) a gradient through ``attn_impl="flash"`` and through the rmsnorm
-        kernel raises on the card.
+        kernel raises on the card (for ssm, which has no attention, the
+        kernels alone).
     Returns the launch counts of (a) and the measurements."""
     import signal
     import tempfile
@@ -2652,6 +3026,8 @@ def train_phase(dev, arch=MODEL_ARCH):
             peak = torch.cuda.max_memory_allocated()
             state = trainer.state
             opt_step = int(state["opt"]["step"])
+            cfg = get_config(arch)
+            held = _held_losses(cfg, trainer.data, state["params"], dev)
             # One more step, through the same trainer and step, under a
             # marker that records every store (C7: the launcher's own
             # session keeps only the last).
@@ -2680,8 +3056,15 @@ def train_phase(dev, arch=MODEL_ARCH):
         check(result["final_step"] == TRAIN_STEPS and len(ms) == TRAIN_STEPS,
               f"{tag} (a): {result['final_step']} steps")
         check(all(np.isfinite(losses)), f"{tag} (a): losses {losses}")
-        check(losses[-1] < losses[0], f"{tag} (a): last loss {losses[-1]} "
-              f"not below the first {losses[0]}")
+        (init_first, init_last), (first, last) = (held["initial"],
+                                                  held["trained"])
+        check(abs(init_first - losses[0]) <= 1e-3 * abs(losses[0]),
+              f"{tag} (a): the redrawn initial weights give {init_first} "
+              f"on the first batch, the launcher {losses[0]}")
+        check(first < losses[0] and last < init_last, f"{tag} (a): the "
+              f"trained weights' loss on the first step's batch {first} "
+              f"(the first loss {losses[0]}), on the last step's {last} "
+              f"(the initial weights' {init_last}): not both below")
         check(opt_step == TRAIN_STEPS, f"{tag} (a): opt step {opt_step}")
         check(ckpt_files == [], f"{tag} (a): checkpoint written "
               f"{ckpt_files}")
@@ -2696,13 +3079,21 @@ def train_phase(dev, arch=MODEL_ARCH):
             f"included); ms a step "
             + " ".join(f"{m:.1f}" for m in ms) + "; loss "
             + " ".join(f"{l:.4f}" for l in losses)
+            + f" (each on its step's new batch, before the step's update); "
+            f"the last below the first, on one batch: the first step's "
+            f"{losses[0]:.4f} initial, {first:.4f} trained; the last "
+            f"step's {init_last:.4f} initial, {last:.4f} trained"
             + f"; {tok_s:.1f} tokens/s over steps 3-{TRAIN_STEPS}; peak "
             f"device memory {peak / 2 ** 30:.2f} GiB; {est.n_total} samples "
             f"in {sorted(n for n in by if by[n].n_samples)}, none and no "
             f"marker store in {list(TRAIN_INNER)}; launches {launches}")
 
-        cfg = get_config(arch)
-        breakdown = train_breakdown(state, cfg, dev)
+        if cfg.family == "ssm":
+            breakdown = None
+            log(f"{tag}: no traced step (~2.5·10^5 launches a step, the "
+                f"sLSTM loop's; the model phase traces that loop alone)")
+        else:
+            breakdown = train_breakdown(state, cfg, dev)
 
         # (d) fused CE at full size, on the trained weights.
         params = state["params"]
@@ -2719,8 +3110,13 @@ def train_phase(dev, arch=MODEL_ARCH):
         torch.cuda.empty_cache()
 
         # (b) card against CPU, reduced, float32.
-        rcfg = get_config(arch).reduced().replace(
-            compute_dtype="float32")
+        reduced = get_config(arch).reduced()
+        if reduced.family == "hybrid" and not (
+                reduced.n_layers % reduced.attn_every):
+            # One layer more, so the groups have a tail (reduced zamba2:
+            # 4 layers at attn_every 2 become two groups and a tail of 1).
+            reduced = reduced.replace(n_layers=reduced.n_layers + 1)
+        rcfg = reduced.replace(compute_dtype="float32")
         opt = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10)
         data = SyntheticTokens(vocab_size=rcfg.vocab_size, seq_len=64,
                                global_batch=4)
@@ -2734,8 +3130,11 @@ def train_phase(dev, arch=MODEL_ARCH):
             step = make_train_step(rcfg, opt, accum_steps=accum,
                                    compression=comp)
             n_el = sum(t.numel() for t in tree_leaves(init["params"]))
+            flip_caps = TRAIN_FLIP_CAP_BY_FAMILY.get(rcfg.family,
+                                                     TRAIN_FLIP_CAP)
             lrs, worst_l, flips, moved, touched = [], 0.0, [], [], set()
             moe = rcfg.family == "moe"
+            grad_rule = rcfg.family == "moe" or rcfg.family in M.RECURRENT
             # The first moments before the step, each device's (moe).
             mu0 = [[torch.zeros_like(m) for m in tree_leaves(st["opt"]["mu"])]
                    for st in (cpu, gpu)]
@@ -2765,7 +3164,7 @@ def train_phase(dev, arch=MODEL_ARCH):
                 if touched:
                     noise = [n | r for n, r in zip(
                         noise, _expert_masks(cpu["params"], touched))]
-                if moe:
+                if grad_rule:
                     mu1 = [[m.detach().clone() for m in tree_leaves(
                         st["opt"]["mu"])] for st in (cpu, gpu)]
                     gc, gg = ([(m - opt.b1 * m0) / (1 - opt.b1)
@@ -2786,7 +3185,7 @@ def train_phase(dev, arch=MODEL_ARCH):
                         f | d for f, d in zip(flipped, apart)]
                     n_flip = sum(int(f.sum()) for f in flipped)
                     flips.append(n_flip)
-                    cap = TRAIN_FLIP_CAP.get(i + 1)
+                    cap = flip_caps.get(i + 1)
                     check(cap is None or n_flip <= cap * n_el,
                           f"{tag} (b) compression step {i + 1}: residuals "
                           f"of {n_flip} elements of {n_el} more than 1e-6 "
@@ -2795,30 +3194,34 @@ def train_phase(dev, arch=MODEL_ARCH):
                 f"{tag} (b) accum {accum} compression {comp}",
                 tree_leaves(gpu["params"]), tree_leaves(cpu["params"]),
                 noise, opt.lr, lrs)
-            cap = TRAIN_MOE_NOISE_CAP if moe else TRAIN_NOISE_CAP
+            cap = (TRAIN_MOE_NOISE_CAP if moe else
+                   TRAIN_NOISE_CAP_BY_FAMILY.get(rcfg.family,
+                                                 TRAIN_NOISE_CAP))
             check(comp or n <= cap * n_el,
                   f"{tag} (b) accum {accum}: {n} rounding-led elements of "
                   f"{n_el} (cap {cap})")
-            log(f"{tag} (b): reduced {arch} float32, accum_steps "
-                f"{accum}, compression {comp}: 3 steps on the card and on "
+            log(f"{tag} (b): reduced {arch} ({rcfg.n_layers} layers) "
+                f"float32, accum_steps {accum}, compression {comp}: 3 "
+                f"steps on the card and on "
                 f"the CPU; losses within rel {worst_l:.2e} (tolerance "
                 f"{TRAIN_LOSS_RTOL}); parameters {worst:.3g} apart (atol "
                 f"1e-2·lr = {1e-2 * opt.lr:.3g}) outside {n} rounding-led "
                 f"elements of {n_el}, those {worst_n:.3g} apart"
                 + (f"; elements whose residuals were ever more than 1e-6 "
                    f"apart (codes rounded apart), after each step: {flips} "
-                   f"(caps {TRAIN_FLIP_CAP} of the elements after steps 1 "
+                   f"(caps {flip_caps} of the elements after steps 1 "
                    f"and 3)" if comp else "")
                 + (f"; tokens routed apart in each step {moved} (cap "
                    f"{TRAIN_ROUTE_FLIP_CAP} of the routed tokens), experts "
-                   f"they touch {sorted(touched)}; an element whose "
-                   f"gradient in some step differed by more than "
-                   f"{TRAIN_GRAD_ROUND_RTOL} of it counts as rounding-led "
-                   f"(cap {cap} of the elements)" if moe else ""))
+                   f"they touch {sorted(touched)}" if moe else "")
+                + (f"; an element whose gradient in some step differed by "
+                   f"more than {TRAIN_GRAD_ROUND_RTOL} of it counts as "
+                   f"rounding-led (cap {cap} of the elements)"
+                   if grad_rule else ""))
         del init, cpu, gpu
 
         # (c) kill and resume, reduced, bf16 compute, on the card.
-        ccfg = get_config(arch).reduced()
+        ccfg = reduced
         copt = AdamWConfig(total_steps=6)
         cdata = SyntheticTokens(vocab_size=ccfg.vocab_size, seq_len=64,
                                 global_batch=4)
@@ -2868,12 +3271,14 @@ def train_phase(dev, arch=MODEL_ARCH):
                         requires_grad=True)
         x = torch.randn(8, 256, device=dev, requires_grad=True)
         refused = []
-        for name, fn in (("flash_attention", lambda: flash_attention(
-                              q, q.detach(), q.detach())),
-                         ("rmsnorm", lambda: rmsnorm(
-                              x, torch.ones(256, device=dev))),
-                         ("loss_fn(attn_impl='flash')", lambda: M.loss_fn(
-                              eparams, ccfg, ebatch, attn_impl="flash"))):
+        cases = [("flash_attention", lambda: flash_attention(
+                      q, q.detach(), q.detach())),
+                 ("rmsnorm", lambda: rmsnorm(
+                      x, torch.ones(256, device=dev)))]
+        if ccfg.family != "ssm":            # xlstm has no attention
+            cases.append(("loss_fn(attn_impl='flash')", lambda: M.loss_fn(
+                eparams, ccfg, ebatch, attn_impl="flash")))
+        for name, fn in cases:
             try:
                 fn()
             except RuntimeError as e:
@@ -2986,6 +3391,29 @@ def main():
         vlm_loss_phase(dev)
     with phase(f"model {AUDIO_ARCH}"):
         paths["audio_launches"] = audio_phase(dev)["launches"]
+    with phase(f"model {HYBRID_ARCH}"):
+        hybrid = recurrent_model_phase(dev, HYBRID_ARCH)
+        model_breakdown(hybrid)
+        paths["hybrid_launches"] = hybrid["launches"]
+    del hybrid
+    with phase(f"serve {HYBRID_ARCH}"):
+        paths["hybrid_serve_launches"] = serve_phase(
+            dev, HYBRID_ARCH)["launches"]
+    with phase(f"train {HYBRID_ARCH}"), watchdog(900, "hybrid train phase"):
+        paths["hybrid_train_launches"] = train_phase(
+            dev, HYBRID_ARCH)["launches"]
+    with phase(f"model {SSM_ARCH}"):
+        ssm = recurrent_model_phase(dev, SSM_ARCH)
+        model_breakdown(ssm)
+        slstm_breakdown(ssm)
+        paths["xlstm_launches"] = ssm["launches"]
+    del ssm
+    log(f"xlstm_launches: {paths['xlstm_launches']['flash_attention']} "
+        f"(xlstm has no attention)")
+    with phase(f"serve {SSM_ARCH}"):
+        paths["xlstm_serve_launches"] = serve_phase(dev, SSM_ARCH)["launches"]
+    with phase(f"train {SSM_ARCH}"), watchdog(900, "ssm train phase"):
+        paths["xlstm_train_launches"] = train_phase(dev, SSM_ARCH)["launches"]
 
     split = fold.pop("split_ms")
     combo_fold.pop("split_ms")
@@ -3019,7 +3447,9 @@ def main():
                   f"B=4 H=16 KV=8 S=2048 dh=128 bf16 causal; moe_launches "
                   f"{MOE_ARCH}, moe30b_launches {MOE30_ARCH} (8 layers), "
                   f"vlm_launches {VLM_ARCH}, audio_launches {AUDIO_ARCH} "
-                  f"(forward)",
+                  f"(forward), hybrid_launches {HYBRID_ARCH} (one per "
+                  f"group: the shared block), xlstm_launches {SSM_ARCH} "
+                  f"(no attention)",
              **path_launches("flash_attention")),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/rmsnorm.cu",

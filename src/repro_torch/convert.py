@@ -5,7 +5,8 @@ device array): timeline substrates, pipeline carries, model parameters
 and KV caches. :func:`tree_to_torch` places such a nest on a torch device
 with its dtypes kept (int32/int64/float64 stay as they are).
 :func:`params_from_jax` and :func:`cache_from_jax` turn the reference
-model's layer-stacked pytrees into the port's per-layer lists;
+model's layer-stacked pytrees into the port's per-layer lists (a list
+of lists for zamba2's groups, which the reference stacks on two axes);
 :func:`train_state_from_jax` and :func:`train_state_to_jax` carry a train
 state (parameters, AdamW moments and step, compression residuals) across
 in both directions.
@@ -70,9 +71,35 @@ def tree_to_torch(tree, device="cuda"):
     return conv(tree)
 
 
-def _unstack(tree, n: int) -> list:
-    """A nest of dicts of tensors stacked on a leading layer axis of
-    length ``n`` → a list of ``n`` nests of per-layer tensors."""
+def _layer_axes(cfg, cache: bool = False) -> dict:
+    """The reference's layer-stacked subtrees of a parameter tree (or,
+    with ``cache``, of a cache) and the lengths of their leading layer
+    axes: ``blocks`` [L], ``pairs`` [L/2], zamba2's ``groups`` [groups,
+    attn_every] and ``tail`` [rest]; the hybrid cache's ``shared_attn``
+    [groups] (the parameters' shared block is not stacked)."""
+    from repro_torch.models.transformer import check_family
+    check_family(cfg)
+    if cfg.family == "ssm":
+        return {"pairs": (cfg.n_layers // 2,)}
+    if cfg.family != "hybrid":
+        return {"blocks": (cfg.n_layers,)}
+    n_groups = cfg.n_layers // cfg.attn_every
+    tail = cfg.n_layers - n_groups * cfg.attn_every
+    out = {"groups": (n_groups, cfg.attn_every)}
+    if tail:
+        out["tail"] = (tail,)
+    if cache:
+        out["shared_attn"] = (n_groups,)
+    return out
+
+
+def _unstack(tree, dims: tuple) -> list:
+    """A nest of dicts of tensors stacked on leading layer axes of lengths
+    ``dims`` → nested lists (one level per axis) of per-layer nests."""
+    if not dims:
+        return tree
+    n = dims[0]
+
     def check(x):
         if isinstance(x, dict):
             return all(check(v) for v in x.values())
@@ -86,31 +113,33 @@ def _unstack(tree, n: int) -> list:
             return {k: pick(v, i) for k, v in x.items()}
         return x[i]
     check(tree)
-    return [pick(tree, i) for i in range(n)]
+    return [_unstack(pick(tree, i), dims[1:]) for i in range(n)]
+
+
+def _unstack_layers(tree, cfg, device, cache: bool = False) -> dict:
+    out = tree_to_torch(dict(tree), device)
+    for k, dims in _layer_axes(cfg, cache).items():
+        out[k] = _unstack(out[k], dims)
+    return out
 
 
 def params_from_jax(tree, cfg, device="cuda") -> dict:
     """The reference's ``M.init_params`` pytree, as numpy (``np.asarray``
     of each leaf) → the port's params: the same nest of dicts, with
-    ``blocks`` unstacked from its leading layer axis into a list of
-    per-layer dicts; a MoE block's expert stacks keep their expert axis
-    ([E, d, ff] per layer). Dtypes are kept (the reference's master
-    weights are float32). The families the port's models run
-    (:func:`repro_torch.models.transformer.check_family` raises for the
-    others)."""
-    from repro_torch.models.transformer import check_family
-    check_family(cfg)
-    p = tree_to_torch(dict(tree), device)
-    p["blocks"] = _unstack(p["blocks"], cfg.n_layers)
-    return p
+    each layer-stacked subtree (``blocks``, ``pairs``, ``groups``,
+    ``tail``) unstacked into per-layer lists (``groups``: a list of
+    groups, each a list of layers); a MoE block's expert stacks keep
+    their expert axis ([E, d, ff] per layer). Dtypes are kept (the
+    reference's master weights are float32)."""
+    return _unstack_layers(tree, cfg, device)
 
 
 def cache_from_jax(cache, cfg, device="cuda") -> dict:
-    """The reference's KV cache ``{"blocks": {"k", "v"}}``, as numpy,
-    with [L, B, KV, T, dh] leaves (bfloat16 by default) → the port's
-    ``{"blocks": [{"k", "v"} per layer]}``, dtype kept."""
-    return {"blocks": _unstack(tree_to_torch(cache["blocks"], device),
-                               cfg.n_layers)}
+    """The reference's cache (``init_cache``/``prefill``/``decode_step``'s
+    tree), as numpy → the port's per-layer lists (KV leaves [L, B, KV,
+    T, dh] → per layer [B, KV, T, dh]; recurrent state likewise), dtype
+    kept."""
+    return _unstack_layers(cache, cfg, device, cache=True)
 
 
 def train_state_from_jax(state, cfg, device="cuda") -> dict:
@@ -131,25 +160,29 @@ def train_state_from_jax(state, cfg, device="cuda") -> dict:
     return out
 
 
-def _stack(layers: list):
-    """A list of per-layer nests → one nest stacked on a leading axis."""
+def _stack(layers: list, dims: tuple):
+    """Nested lists of per-layer nests, of lengths ``dims`` → one nest
+    stacked on leading axes of those lengths."""
+    if len(layers) != dims[0]:
+        raise ValueError(f"{len(layers)} layers, expected {dims[0]}")
+    if len(dims) > 1:
+        layers = [_stack(x, dims[1:]) for x in layers]
     if isinstance(layers[0], dict):
-        return {k: _stack([x[k] for x in layers]) for k in layers[0]}
+        return {k: _stack([x[k] for x in layers], dims[:1])
+                for k in layers[0]}
     return np.stack(layers)
 
 
 def _params_to_jax(p, cfg) -> dict:
     out = tree_map(lambda t: t.detach().to("cpu").numpy(), p)
-    if len(out["blocks"]) != cfg.n_layers:
-        raise ValueError(f"{len(out['blocks'])} blocks, expected "
-                         f"{cfg.n_layers}")
-    out["blocks"] = _stack(out["blocks"])
+    for k, dims in _layer_axes(cfg).items():
+        out[k] = _stack(out[k], dims)
     return out
 
 
 def train_state_to_jax(state, cfg) -> dict:
     """The port's train state → the reference's, as numpy, with the
-    blocks stacked on a leading layer axis (the inverse of
+    per-layer lists stacked on leading layer axes (the inverse of
     :func:`train_state_from_jax`)."""
     out = {"params": _params_to_jax(state["params"], cfg),
            "opt": {"mu": _params_to_jax(state["opt"]["mu"], cfg),

@@ -1,23 +1,27 @@
-"""Top-level model assembly for the families built of the standard
-attention block (dense, moe, audio, vlm): init / forward / loss /
+"""Top-level model assembly for all six families: init / forward / loss /
 prefill / cache / decode.
 
 Port of ``src/repro/models/model.py``. The reference stacks the layers on
-a leading axis and scans over them; here ``p["blocks"]`` and the KV
-cache's ``cache["blocks"]`` are Python lists with one dict per layer, and
-a Python loop runs the layers (:func:`repro_torch.convert.params_from_jax`
-unstacks the reference's weights). Audio (``cfg.embed_inputs``) takes
-precomputed frame embeddings plus sinusoidal positions and is an
-encoder: forward and loss only. VLM takes optional ``patch_embeds``
-ahead of the token embeddings; its loss covers the text positions. The
-recurrent families (ssm, hybrid) raise ``NotImplementedError`` naming
-ROADMAP A7(d)/(e).
+a leading axis and scans over them; here they are Python lists with one
+dict per layer, and a Python loop runs them
+(:func:`repro_torch.convert.params_from_jax` unstacks the reference's
+weights): ``p["blocks"]`` for the standard attention block (dense, moe,
+audio, vlm), ``p["pairs"]`` for xLSTM's mLSTM + sLSTM pairs (ssm), and
+for zamba2 (hybrid) ``p["groups"]``, a list of groups of ``attn_every``
+Mamba2 layers each followed by the one weight-shared ``p["shared_attn"]``
+block, then ``p["tail"]``, the remaining layers (only when there are
+some). The caches follow the same layout; the hybrid's holds one KV
+cache per group for the shared block (``cache["shared_attn"]``). Audio
+(``cfg.embed_inputs``) takes precomputed frame embeddings plus
+sinusoidal positions and is an encoder: forward and loss only. VLM
+takes optional ``patch_embeds`` ahead of the token embeddings; its loss
+covers the text positions.
 
 Training: :func:`loss_fn` (plain or fused chunked lm_head + CE) is what
-``train/step.py`` differentiates. When autograd records, each block runs
-under ``cfg.remat`` (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint``); inference (forward, prefill, decode) runs the blocks
-as plain calls.
+``train/step.py`` differentiates. When autograd records, each block (a
+pair; a group with the shared block after it) runs under ``cfg.remat``
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``);
+inference (forward, prefill, decode) runs the blocks as plain calls.
 
 Entry points run where their tensors live: :func:`init_params` and
 :func:`init_cache` take ``device=`` (the GPU unless the caller asks for
@@ -40,7 +44,11 @@ from repro_torch.core.regions import region
 from repro_torch.models import transformer as tb
 from repro_torch.models.layers import (Params, dense_init, embed_init, norm,
                                        norm_init, sinusoidal_positions)
+from repro_torch.models.ssm import ssm_cache_init
+from repro_torch.models.xlstm import mlstm_cache_init, slstm_cache_init
 from repro_torch.tree import tree_leaves
+
+RECURRENT = ("ssm", "hybrid")
 
 __all__ = ["init_params", "cast_params", "forward", "loss_fn",
            "cross_entropy", "fused_lm_head_ce", "prefill", "init_cache",
@@ -122,20 +130,45 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         p["embed"] = embed_init(generator, cfg.vocab_size, cfg.d_model)
     p["final_norm"] = norm_init(cfg.d_model, cfg.norm_kind, generator.device)
     p["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size)
-    p["blocks"] = [tb.tblock_init(generator, cfg)
-                   for _ in range(cfg.n_layers)]
+    if cfg.family in tb.ATTN_FAMILIES:
+        p["blocks"] = [tb.tblock_init(generator, cfg)
+                       for _ in range(cfg.n_layers)]
+    elif cfg.family == "ssm" and cfg.slstm_every:          # xLSTM
+        p["pairs"] = [tb.xlstm_pair_init(generator, cfg)
+                      for _ in range(cfg.n_layers // 2)]
+    elif cfg.family == "hybrid":                           # zamba2
+        n_groups, tail = _hybrid_split(cfg)
+        p["groups"] = [tb.zamba_group_init(generator, cfg, cfg.attn_every)
+                       for _ in range(n_groups)]
+        if tail:
+            p["tail"] = tb.zamba_group_init(generator, cfg, tail)
+        p["shared_attn"] = tb.shared_attn_init(generator, cfg)
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
     return p
+
+
+def _hybrid_split(cfg: ModelConfig) -> tuple[int, int]:
+    """zamba2's (groups of ``attn_every`` layers, tail layers)."""
+    n_groups = cfg.n_layers // cfg.attn_every
+    return n_groups, cfg.n_layers - n_groups * cfg.attn_every
+
+
+# Matrices the model uses in float32 whatever the compute dtype.
+_FLOAT32 = ("router", "r")
 
 
 def cast_params(p: Params, cfg: ModelConfig) -> Params:
     """A copy of ``p`` with every matrix (embedding, projections, expert
-    stacks, head) held in the compute dtype; norm scales, biases and the
-    MoE router stay float32.
+    stacks, conv taps, head) held in the compute dtype; norm scales,
+    biases, the SSM and gate vectors, the MoE router and the sLSTM
+    recurrence ``r`` stay float32.
 
     The model casts each matrix to the activation dtype at every use
-    (``layers.linear``, the embedding gather, the experts, the head) and
-    the router to float32, so the numbers are the same: this only saves
-    the cast at every call. Made once at load."""
+    (``layers.linear``, the embedding gather, the experts, the head),
+    the router to float32 and multiplies ``r`` with the float32 sLSTM
+    state, so the numbers are the same: this only saves the cast at
+    every call. Made once at load."""
     dt = _compute_dtype(cfg)
 
     def conv(x, key=None):
@@ -143,7 +176,7 @@ def cast_params(p: Params, cfg: ModelConfig) -> Params:
             return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, list):
             return [conv(v) for v in x]
-        return x.to(dt) if x.ndim >= 2 and key != "router" else x
+        return x.to(dt) if x.ndim >= 2 and key not in _FLOAT32 else x
     return conv(p)
 
 
@@ -180,29 +213,59 @@ def _embed(p: Params, cfg: ModelConfig, batch: dict):
     return x, positions
 
 
-def _backbone(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, attn_impl: str = "full",
-              q_chunk: int = 1024):
-    """All blocks (no embed / final norm / head). Returns (x, aux). Each
-    block runs under ``cfg.remat`` when autograd records it."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for pl in p["blocks"]:
-        def body(h, pl=pl):
+def _units(p: Params, cfg: ModelConfig, positions: torch.Tensor, *,
+           attn_impl: str, ssd_chunk: int, q_chunk: int):
+    """The backbone's remat units in order, as (weights, body) with
+    body(x) → (x, aux): a block, an xLSTM pair, or a zamba2 group with
+    the shared block after it (the reference's scan bodies)."""
+    if cfg.family in tb.ATTN_FAMILIES:
+        def block(h, pl):
             return tb.tblock_forward(pl, cfg, h, positions,
                                      attn_impl=attn_impl, q_chunk=q_chunk)
-        if _recording(x, pl):
+        return [(pl, functools.partial(block, pl=pl)) for pl in p["blocks"]]
+    if cfg.family == "ssm":
+        def pair(h, pl):
+            return tb.xlstm_pair_forward(pl, cfg, h, positions,
+                                         chunk=ssd_chunk)
+        return [(pl, functools.partial(pair, pl=pl)) for pl in p["pairs"]]
+    shared = p["shared_attn"]
+
+    def group(h, pg):
+        h = tb.zamba_group_forward(pg, cfg, h, chunk=ssd_chunk)
+        h = tb.shared_attn_forward(shared, cfg, h, positions,
+                                   attn_impl=attn_impl, q_chunk=q_chunk)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return [((pg, shared), functools.partial(group, pg=pg))
+            for pg in p["groups"]]
+
+
+def _backbone(p: Params, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, attn_impl: str = "full",
+              ssd_chunk: int = 128, q_chunk: int = 1024):
+    """All blocks (no embed / final norm / head). Returns (x, aux). Each
+    remat unit runs under ``cfg.remat`` when autograd records it; the
+    zamba2 tail runs outside it, as in the reference."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for w, body in _units(p, cfg, positions, attn_impl=attn_impl,
+                          ssd_chunk=ssd_chunk, q_chunk=q_chunk):
+        if _recording(x, w):
             body = _remat(body, cfg)
         x, a = body(x)
         aux = aux + a
+    if "tail" in p:
+        x = tb.zamba_group_forward(p["tail"], cfg, x, chunk=ssd_chunk)
     return x, aux
 
 
 def forward(p: Params, cfg: ModelConfig, batch: dict, *,
-            attn_impl: str = "full", q_chunk: int = 1024):
-    """Full-sequence forward → logits [B, S, V], aux loss."""
+            attn_impl: str = "full", ssd_chunk: int = 128,
+            q_chunk: int = 1024):
+    """Full-sequence forward → logits [B, S, V], aux loss.
+    ``ssd_chunk`` is the recurrent families' scan chunk (the sequence
+    length must be a multiple of ``min(ssd_chunk, S)``)."""
     x, positions = _embed(p, cfg, batch)
     x, aux = _backbone(p, cfg, x, positions, attn_impl=attn_impl,
-                       q_chunk=q_chunk)
+                       ssd_chunk=ssd_chunk, q_chunk=q_chunk)
     x = norm(p["final_norm"], x, kind=cfg.norm_kind, eps=cfg.norm_eps)
     with region("lm_head"):
         logits = x @ p["lm_head"].to(x.dtype)
@@ -271,11 +334,11 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: dict, *,
             q_chunk: int = 1024, ce_chunk: int = 512):
     """Training loss → (ce + aux, {"ce", "aux"}). ``fuse_ce=None`` fuses
     the head and CE when there is no ``loss_mask`` and S >= 2048.
-    ``ssd_chunk`` and ``unroll`` are the reference's knobs for the
-    recurrent families and for its cost pass; the standard-block families
-    ignore them. For VLM with ``patch_embeds`` the loss covers the text
-    positions only: the patch prefix carries no labels."""
-    del ssd_chunk, unroll
+    ``ssd_chunk`` is the recurrent families' scan chunk; ``unroll`` is
+    the reference's knob for its cost pass and is ignored. For VLM with
+    ``patch_embeds`` the loss covers the text positions only: the patch
+    prefix carries no labels."""
+    del unroll
     tb.check_family(cfg)
     labels = batch["labels"]
     n_patch = (batch["patch_embeds"].shape[1]
@@ -286,7 +349,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: dict, *,
     if fuse_ce:
         x, positions = _embed(p, cfg, batch)
         x, aux = _backbone(p, cfg, x, positions, attn_impl=attn_impl,
-                           q_chunk=q_chunk)
+                           ssd_chunk=ssd_chunk, q_chunk=q_chunk)
         x = norm(p["final_norm"], x[:, n_patch:], kind=cfg.norm_kind,
                  eps=cfg.norm_eps)
         with region("loss"):
@@ -294,7 +357,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: dict, *,
         return ce + aux, {"ce": ce, "aux": aux}
 
     logits, aux = forward(p, cfg, batch, attn_impl=attn_impl,
-                          q_chunk=q_chunk)
+                          ssd_chunk=ssd_chunk, q_chunk=q_chunk)
     with region("loss"):
         ce = cross_entropy(logits[:, n_patch:], labels,
                            batch.get("loss_mask"))
@@ -302,25 +365,50 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: dict, *,
 
 
 def prefill(p: Params, cfg: ModelConfig, batch: dict, max_len: int, *,
-            attn_impl: str = "chunked", cache_dtype=torch.bfloat16,
-            q_chunk: int = 1024):
+            attn_impl: str = "chunked", ssd_chunk: int = 128,
+            cache_dtype=torch.bfloat16, q_chunk: int = 1024):
     """Inference prefill: forward over the prompt (for VLM, the patch
     embeddings and the tokens), returning (logits of the last position
-    [B,1,V], populated cache, cur_len = S)."""
+    [B,1,V], populated cache, cur_len = S). The recurrent state is
+    float32 and the conv tails are in the compute dtype, as the
+    reference's; ``cache_dtype`` is the KV caches'."""
     _check_decoder(cfg)
     x, positions = _embed(p, cfg, batch)
     S = x.shape[1]
-    caches = []
-    for pl in p["blocks"]:
-        x, c = tb.tblock_prefill(pl, cfg, x, positions, max_len,
-                                 attn_impl=attn_impl,
-                                 cache_dtype=cache_dtype, q_chunk=q_chunk)
-        caches.append(c)
+    if cfg.family in tb.ATTN_FAMILIES:
+        caches = []
+        for pl in p["blocks"]:
+            x, c = tb.tblock_prefill(pl, cfg, x, positions, max_len,
+                                     attn_impl=attn_impl,
+                                     cache_dtype=cache_dtype,
+                                     q_chunk=q_chunk)
+            caches.append(c)
+        cache = {"blocks": caches}
+    elif cfg.family == "ssm":
+        cache = {"pairs": []}
+        for pl in p["pairs"]:
+            x, c = tb.xlstm_pair_prefill(pl, cfg, x, positions,
+                                         chunk=ssd_chunk)
+            cache["pairs"].append(c)
+    else:
+        cache = {"groups": [], "shared_attn": []}
+        for pg in p["groups"]:
+            x, cg = tb.zamba_group_prefill(pg, cfg, x, chunk=ssd_chunk)
+            x, ca = tb.shared_attn_prefill(p["shared_attn"], cfg, x,
+                                           positions, max_len,
+                                           attn_impl=attn_impl,
+                                           cache_dtype=cache_dtype,
+                                           q_chunk=q_chunk)
+            cache["groups"].append(cg)
+            cache["shared_attn"].append(ca)
+        if "tail" in p:
+            x, cache["tail"] = tb.zamba_group_prefill(p["tail"], cfg, x,
+                                                      chunk=ssd_chunk)
     x = norm(p["final_norm"], x, kind=cfg.norm_kind, eps=cfg.norm_eps)
     with region("lm_head"):
         logits = x[:, -1:, :] @ p["lm_head"].to(x.dtype)
-    return (logits, {"blocks": caches},
-            torch.tensor(S, dtype=torch.int32, device=x.device))
+    return logits, cache, torch.tensor(S, dtype=torch.int32,
+                                       device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -335,26 +423,55 @@ def _check_decoder(cfg: ModelConfig) -> None:
                          f"only, no prefill, cache or decode")
 
 
+def _kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+              dev) -> Params:
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Params:
-    """Zero KV cache: ``{"blocks": [{"k", "v"} per layer]}``, each
-    [batch, KV, max_len, dh]."""
+    """Zero cache, batch first in every tensor. Standard blocks:
+    ``{"blocks": [{"k", "v"} per layer]}``, each [batch, KV, max_len,
+    dh] in ``dtype``. ssm: ``{"pairs": [{"m": {"C", "n", "m"}, "s": {"c",
+    "n", "h", "m"}} per pair]}``, float32. hybrid: ``{"groups": [[{"h",
+    "conv_x", "conv_bc"} per layer] per group], "shared_attn": [{"k",
+    "v"} per group][, "tail": [{"h", "conv_x", "conv_bc"} per layer]]}``
+    (``h`` float32, the conv tails and KV in ``dtype``)."""
     _check_decoder(cfg)
     dev = resolve_device(device)
-    shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {"blocks": [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-                        "v": torch.zeros(shape, dtype=dtype, device=dev)}
-                       for _ in range(cfg.n_layers)]}
+    if cfg.family in tb.ATTN_FAMILIES:
+        return {"blocks": [_kv_cache(cfg, batch, max_len, dtype, dev)
+                           for _ in range(cfg.n_layers)]}
+    if cfg.family == "ssm":
+        return {"pairs": [{"m": mlstm_cache_init(cfg, batch, dev),
+                           "s": slstm_cache_init(cfg, batch, dev)}
+                          for _ in range(cfg.n_layers // 2)]}
+    n_groups, tail = _hybrid_split(cfg)
+
+    def ssm_g(n):
+        return [ssm_cache_init(cfg, batch, dtype, dev) for _ in range(n)]
+    cache: Params = {
+        "groups": [ssm_g(cfg.attn_every) for _ in range(n_groups)],
+        "shared_attn": [_kv_cache(cfg, batch, max_len, dtype, dev)
+                        for _ in range(n_groups)]}
+    if tail:
+        cache["tail"] = ssm_g(tail)
+    return cache
 
 
 def reset_cache_slots(cfg: ModelConfig, cache: Params,
                       slot_mask: torch.Tensor) -> Params:
-    """Zero the cache rows of every True entry of ``slot_mask`` [B], in
-    place (slot admission for continuous batching); returns the cache."""
+    """Zero the cache state (KV rows and recurrent state) of every True
+    entry of ``slot_mask`` [B], in place (slot admission for continuous
+    batching: a reused slot must not seed its new request with the
+    previous occupant's recurrent state); returns the cache. Batch is
+    the first axis of every tensor of the port's caches."""
     _check_decoder(cfg)
-    for c in cache["blocks"]:
-        for t in c.values():
-            t[slot_mask.to(device=t.device, dtype=torch.bool)] = 0
+    for t in tree_leaves(cache):
+        m = slot_mask.to(device=t.device, dtype=torch.bool)
+        t.masked_fill_(m.view(-1, *[1] * (t.ndim - 1)), 0)
     return cache
 
 
@@ -372,16 +489,41 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     still computed for every row. ``window``/``sinks`` select the
     StreamingLLM sliding-window mask of the speculative draft.
 
+    The recurrent families (ssm, hybrid) advance their state once per
+    call: they take S=1 only (several positions go through
+    :func:`decode_verify`) and raise ``ValueError`` otherwise.
+    ``window``/``sinks`` reach the hybrid's shared attention block.
+
     The cache is updated in place and returned. Returns
     (logits [B,S,V], cache).
     """
     _check_decoder(cfg)
+    if cfg.family in RECURRENT and tokens.shape[1] != 1:
+        raise ValueError(f"{cfg.name}: a recurrent decode step takes one "
+                         f"position, got {tokens.shape[1]}; score several "
+                         f"with decode_verify")
     dt = _compute_dtype(cfg)
     with region("embed"):
         x = p["embed"].to(dt)[tokens]
-    for pl, cl in zip(p["blocks"], cache["blocks"]):
-        x, _ = tb.tblock_decode(pl, cfg, x, cl, cur_len, window=window,
-                                sinks=sinks, write_mask=write_mask)
+    if cfg.family in tb.ATTN_FAMILIES:
+        for pl, cl in zip(p["blocks"], cache["blocks"]):
+            x, _ = tb.tblock_decode(pl, cfg, x, cl, cur_len, window=window,
+                                    sinks=sinks, write_mask=write_mask)
+    elif cfg.family == "ssm":
+        for pl, cl in zip(p["pairs"], cache["pairs"]):
+            x, _ = tb.xlstm_pair_decode(pl, cfg, x, cl, cur_len,
+                                        write_mask=write_mask)
+    else:
+        for pg, cg, ca in zip(p["groups"], cache["groups"],
+                              cache["shared_attn"]):
+            x, _ = tb.zamba_group_decode(pg, cfg, x, cg,
+                                         write_mask=write_mask)
+            x, _ = tb.shared_attn_decode(p["shared_attn"], cfg, x, ca,
+                                         cur_len, window=window, sinks=sinks,
+                                         write_mask=write_mask)
+        if "tail" in cache:
+            x, _ = tb.zamba_group_decode(p["tail"], cfg, x, cache["tail"],
+                                         write_mask=write_mask)
     x = norm(p["final_norm"], x, kind=cfg.norm_kind, eps=cfg.norm_eps)
     with region("lm_head"):
         logits = x @ p["lm_head"].to(x.dtype)
@@ -393,11 +535,24 @@ def decode_verify(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   write_mask: torch.Tensor | None = None):
     """Self-speculative verify: score L >= 1 positions in one step.
 
-    For the KV-cache families this is the multi-position
-    :func:`decode_step`: each query row attends over the full cache under
-    its own causal mask (a MoE block is dropless there, so each row's
-    experts are its own).
+    ``tokens`` [B,L]; position j of row b is the model input at cache
+    position ``cur_len[b] + j``. For the KV-cache families this is the
+    multi-position :func:`decode_step`: each query row attends over the
+    full cache under its own causal mask (a MoE block is dropless there,
+    so each row's experts are its own). The recurrent families advance
+    state once per call, so they run the single-token step over the L
+    positions in turn, exactly as sequential decoding does.
     Returns ``(logits [B,L,V], cache)``.
     """
-    return decode_step(p, cfg, tokens, cache, cur_len,
-                       write_mask=write_mask)
+    if cfg.family not in RECURRENT:
+        return decode_step(p, cfg, tokens, cache, cur_len,
+                           write_mask=write_mask)
+    B, L = tokens.shape
+    cl = torch.as_tensor(cur_len, dtype=torch.int32, device=tokens.device)
+    cl = cl.expand(B) if cl.ndim == 0 else cl
+    logits = []
+    for j in range(L):
+        lj, cache = decode_step(p, cfg, tokens[:, j:j + 1], cache, cl + j,
+                                write_mask=write_mask)
+        logits.append(lj)
+    return torch.cat(logits, dim=1), cache

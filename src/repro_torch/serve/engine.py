@@ -2,11 +2,13 @@
 continuous-batching host scheduler (slot-based, vLLM-lite).
 
 Port of ``src/repro/serve/engine.py``. The device side is the model's
-decode step for the KV-cache families the port runs (dense, moe, vlm;
-prefill fills a slot's cache by teacher-forced decode steps, decode
-advances every active slot one token; a MoE block is dropless there, so
-no slot's tokens depend on the others'), run eagerly on the engine's
-device, which defaults to the GPU. The host side packs
+decode step for every decoder family (dense, moe, vlm with KV caches;
+ssm and hybrid with recurrent state, the hybrid's shared block with a
+KV cache too; prefill fills a slot's cache by teacher-forced decode
+steps, decode advances every active slot one token, writes masked to
+the slots they belong to; a MoE block is dropless there, so no slot's
+tokens depend on the others'), run eagerly on the engine's device,
+which defaults to the GPU. The host side packs
 requests into fixed slots so the decode step shape stays static. ALEA
 regions wrap both so serving energy is attributable per phase: attach a
 :class:`PhaseEnergyAccountant` and the engine drains the host sampler's
@@ -16,14 +18,16 @@ never the full sample stream.
 
 The model runs inside :func:`repro_torch.core.regions.opaque`, so its
 own regions (``embed``, ``attn``, ``ffn``, ``moe_router``, ``moe_ffn``,
-``lm_head``) label a profiler
+``ssm_decode``, ``mlstm_decode``, ``lm_head``, ...) label a profiler
 trace but take no samples: a sample taken during a step lands in the
 serving phase around it, as in the reference, whose jitted steps run
 their regions only while being traced.
 
 The cache is updated in place (the reference's steps return a new
-cache); the speculative step clones it where it keeps a window-start
-checkpoint.
+cache); for the recurrent families the speculative step clones it
+twice, the window-start checkpoint (the rollback target) and the verify
+step's input, so neither shares a tensor with the cache the steps
+write.
 """
 
 from __future__ import annotations

@@ -34,9 +34,12 @@ from repro_torch.serve import recovery as p_recovery
 from repro_torch.serve import scheduler as p_scheduler
 
 ARCH = "qwen3-1.7b"
-# The KV-cache families the serving tests run: dense and moe
-# (``tests/test_serve_ragged.py``'s positional-KV pair).
-KV_ARCHS = ("qwen3-1.7b", "qwen3-moe-30b-a3b")
+# The four cache families the serving tests run
+# (``tests/test_serve_ragged.py``'s ``ARCHS``): dense and moe (positional
+# KV), ssm and hybrid (recurrent state; hybrid with its shared block's KV).
+CACHE_ARCHS = ("qwen3-1.7b", "qwen3-moe-30b-a3b", "xlstm-125m",
+               "zamba2-1.2b")
+RECURRENT_ARCHS = CACHE_ARCHS[2:]
 
 
 def _pkg(name, engine, recovery, scheduler, regions, sampler, faults,

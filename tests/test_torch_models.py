@@ -5,7 +5,10 @@ and numpy-seeded inputs: four reduced dense configs, and the moe
 (``qwen3-moe-30b-a3b``, ``granite-moe-1b-a400m``), vlm
 (``internvl2-1b``, with ``patch_embeds``) and audio (``hubert-xlarge``,
 with ``embeds``, non-causal) families in float32, the MoE routers'
-expert choices equal to the reference's.
+expert choices equal to the reference's; and the recurrent families:
+ssm (``xlstm-125m``) and hybrid (``zamba2-1.2b``, reduced to 2 groups of
+2 layers, and with 5 layers: 2 groups plus a tail of 1), their caches
+and recurrent state included.
 
 Tolerances:
 
@@ -17,6 +20,15 @@ Tolerances:
   the reference's own kernel-vs-plain spread on these models is 0.016-
   0.039 at max |logit| ~3; the port sits at the same distance (0.023-
   0.047 measured), so the limit is about twice the reference's spread.
+  The recurrent families' logits and caches (float32 state that
+  reaches ~100 in sLSTM's stabiliser, bf16 conv tails and KV) are held
+  leaf by leaf to the reference's float32 run on the same tokens: the
+  port's bf16 run within ``BF16_SPREAD`` = 2 times the RMS distance of
+  the reference's own bf16 run from it (the two round at their own
+  places: on reduced zamba2's prefill logits the port is 0.064 from the
+  float32 run at most, the reference 0.062, and the two bf16 runs 0.084
+  apart; the largest difference of a small state leaf is noisy, its RMS
+  is not).
 """
 
 import dataclasses
@@ -44,6 +56,7 @@ from repro_torch.models import model as PM
 
 F32 = dict(atol=2e-4, rtol=1e-3)
 BF16_ATOL = 0.08
+BF16_SPREAD = 2.0
 ARCHS = ["qwen3-1.7b", "yi-6b", "stablelm-3b", "starcoder2-15b"]
 
 # The reference's entry points, jitted: one compile per config instead of
@@ -279,9 +292,9 @@ def test_unknown_impl_and_family_raise():
     with pytest.raises(ValueError, match="unknown attention impl"):
         PA._attend(pcfg, q, q[:, :2], q[:, :2], None, impl="pallas",
                    q_chunk=8)
-    xlstm = preg.get_config("xlstm-125m").reduced()
-    with pytest.raises(NotImplementedError, match="A7"):
-        PM.init_params(torch.Generator().manual_seed(0), xlstm, device="cpu")
+    bogus = pcfg.replace(family="bogus")
+    with pytest.raises(ValueError, match="unknown family"):
+        PM.init_params(torch.Generator().manual_seed(0), bogus, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -672,3 +685,284 @@ def test_cast_params_keeps_the_router_float32_and_the_numbers():
     a, aux_a = PM.forward(pp, pcfg, {"tokens": toks})
     b, aux_b = PM.forward(cast, pcfg, {"tokens": toks})
     assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families: ssm (xlstm) and hybrid (zamba2), float32 and bf16
+# ---------------------------------------------------------------------------
+
+# name → (arch, n_layers or None for the reduced config's). zamba2's reduced
+# config has 4 layers at attn_every 2, so no tail; "zamba2-tail" has 5:
+# two groups of 2 and a tail of 1.
+RECURRENT = {"xlstm-125m": ("xlstm-125m", None),
+             "zamba2-1.2b": ("zamba2-1.2b", None),
+             "zamba2-tail": ("zamba2-1.2b", 5)}
+
+
+def _rec_cfgs(name, dtype="float32"):
+    arch, n = RECURRENT[name]
+    rcfg, pcfg = _cfgs(arch, dtype)
+    if n is not None:
+        rcfg, pcfg = rcfg.replace(n_layers=n), pcfg.replace(n_layers=n)
+    return rcfg, pcfg
+
+
+@functools.cache
+def _rec_weights(name):
+    rcfg, pcfg = _rec_cfgs(name)
+    rp = _r_init(jax.random.PRNGKey(0), rcfg)
+    return rp, params_from_jax(jax.tree.map(np.asarray, rp), pcfg,
+                               device="cpu")
+
+
+def _stacked(tree, pcfg):
+    """The port's params or cache → numpy leaves in the reference's
+    layer-stacked layout and leaf order."""
+    from repro_torch.convert import _layer_axes, _stack
+    from repro_torch.tree import tree_map
+    out = tree_map(_np, tree)
+    cache = "shared_attn" in tree and isinstance(tree["shared_attn"], list)
+    for k, dims in _layer_axes(pcfg, cache=cache).items():
+        out[k] = _stack(out[k], dims)
+    return jax.tree.leaves(out)
+
+
+def _close_trees(got, want, pcfg, close):
+    g = _stacked(got, pcfg)
+    w = jax.tree.leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.shape == b.shape
+        close(a, np.asarray(b, np.float32))
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_inits_draw_the_reference_shapes(name):
+    rp, want = _rec_weights(name)
+    _, pcfg = _rec_cfgs(name)
+    got = PM.init_params(torch.Generator().manual_seed(0), pcfg,
+                         device="cpu")
+    shapes = jax.tree.map(lambda t: (tuple(t.shape), t.dtype), got)
+    assert shapes == jax.tree.map(lambda t: (tuple(t.shape), t.dtype), want)
+    assert ("tail" in got) == (name == "zamba2-tail")
+    if pcfg.family == "hybrid":
+        assert len(got["groups"]) == pcfg.n_layers // pcfg.attn_every
+        assert all(len(g) == pcfg.attn_every for g in got["groups"])
+    from repro_torch.convert import _params_to_jax
+    back = _params_to_jax(want, pcfg)
+    assert jax.tree.structure(back) == jax.tree.structure(rp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(rp)):
+        assert a.tobytes() == np.asarray(b).tobytes()
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+@pytest.mark.parametrize("impl,rimpl", [("full", "full"),
+                                        ("flash", "pallas")])
+def test_recurrent_forward_matches_reference(name, impl, rimpl):
+    rcfg, pcfg = _rec_cfgs(name)
+    rp, pp = _rec_weights(name)
+    toks = _tokens(rcfg, 2, 64, 3)
+    got, aux = PM.forward(pp, pcfg, {"tokens": torch.from_numpy(toks)},
+                          attn_impl=impl, ssd_chunk=16, q_chunk=32)
+    want, _ = _r_forward(rp, rcfg, {"tokens": jnp.asarray(toks)},
+                         attn_impl=rimpl, q_chunk=32)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
+    assert float(aux) == 0.0
+
+
+_r_prefill_chunk = jax.jit(RM.prefill, static_argnums=(1, 3),
+                           static_argnames=("attn_impl", "cache_dtype",
+                                            "ssd_chunk"))
+
+
+def _rms(d):
+    return float(np.sqrt(np.mean(np.square(d, dtype=np.float64))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_prefill_and_decode_match_reference(name, dtype):
+    """Prefill (zamba2's shared block through the flash path, the
+    reference's Pallas kernel in interpret mode), then 4 decode steps
+    from the reference's cache with a ragged ``cur_len`` and a
+    ``write_mask`` that leaves row 1's recurrent state and KV alone;
+    logits and every cache leaf (recurrent state float32) compared. In
+    bf16 each of the port's is held as close (in RMS) to the reference's
+    float32 run on the same tokens (prefill and decode in float32
+    throughout) as ``BF16_SPREAD`` times the reference's own bf16 run
+    is."""
+    rcfg, pcfg = _rec_cfgs(name, dtype)
+    rcfg32 = rcfg.replace(compute_dtype="float32")
+    rp, pp = _rec_weights(name)
+    f32 = dtype == "float32"
+    cache_dt = (jnp.float32, torch.float32) if f32 else (jnp.bfloat16,
+                                                         torch.bfloat16)
+    B, S, max_len = 3, 32, 40
+    toks = _tokens(rcfg, B, S, 11)
+
+    def ref_prefill(cfg, dt):
+        return _r_prefill_chunk(rp, cfg, {"tokens": jnp.asarray(toks)},
+                                max_len, attn_impl="pallas",
+                                cache_dtype=dt, ssd_chunk=8)
+
+    def check(plog, pcache, rlog, rcache, r32=None):
+        got = [_np(plog)] + _stacked(pcache, pcfg)
+        want = [np.asarray(x, np.float32)
+                for x in [rlog] + jax.tree.leaves(rcache)]
+        assert len(got) == len(want)
+        if not f32:
+            truth = [np.asarray(x, np.float32)
+                     for x in [r32[0]] + jax.tree.leaves(r32[1])]
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.shape == b.shape
+            if f32:
+                np.testing.assert_allclose(a, b, **F32)
+            else:
+                spread = _rms(b - truth[i])
+                assert _rms(a - truth[i]) <= BF16_SPREAD * spread, i
+
+    rlog, rcache, rcl = ref_prefill(rcfg, cache_dt[0])
+    r32 = None if f32 else ref_prefill(rcfg32, jnp.float32)[:2]
+    plog, pcache, pcl = PM.prefill(pp, pcfg, {"tokens": torch.from_numpy(
+        toks)}, max_len, attn_impl="flash", ssd_chunk=8,
+        cache_dtype=cache_dt[1])
+    assert int(pcl) == int(rcl) == S
+    check(plog, pcache, rlog, rcache, r32)
+
+    pcache = cache_from_jax(jax.tree.map(np.asarray, rcache), pcfg,
+                            device="cpu")
+    kept = [t.clone() for t in jax.tree.leaves(
+        jax.tree.map(lambda t: t[1], pcache))]
+    cl = np.array([S, S - 5, S - 9], np.int32)
+    wm = np.array([True, False, True])
+    tok = toks[:, -1:]
+    for _ in range(4):
+        args = (jnp.asarray(tok),)
+        kw = dict(write_mask=jnp.asarray(wm))
+        if not f32:       # the reference's float32 run, same tokens
+            r32 = _r_decode(rp, rcfg32, *args, r32[1], jnp.asarray(cl),
+                            **kw)
+        rlog, rcache = _r_decode(rp, rcfg, *args, rcache, jnp.asarray(cl),
+                                 **kw)
+        plog, pcache = PM.decode_step(pp, pcfg, torch.from_numpy(tok),
+                                      pcache, torch.from_numpy(cl),
+                                      write_mask=torch.from_numpy(wm))
+        check(plog, pcache, rlog, rcache, r32)
+        if f32:
+            np.testing.assert_array_equal(np.asarray(rlog).argmax(-1),
+                                          _np(plog).argmax(-1))
+        tok = np.asarray(rlog, np.float32).argmax(-1).astype(np.int32)
+        cl = cl + 1
+    for a, b in zip(jax.tree.leaves(jax.tree.map(lambda t: t[1], pcache)),
+                    kept):
+        assert torch.equal(a, b), "a masked row's state moved"
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_decode_matches_forward(name):
+    """Decoding a sequence token by token from a zero cache gives the
+    full forward's logits (``tests/test_arch_smoke.py::
+    test_decode_matches_forward``)."""
+    _, pcfg = _rec_cfgs(name)
+    _, pp = _rec_weights(name)
+    B, S = 2, 16
+    toks = torch.from_numpy(_tokens(pcfg, B, S, 13))
+    full, _ = PM.forward(pp, pcfg, {"tokens": toks})
+    cache = PM.init_cache(pcfg, B, S, dtype=torch.float32, device="cpu")
+    outs = []
+    for t in range(S):
+        logits, cache = PM.decode_step(pp, pcfg, toks[:, t:t + 1], cache,
+                                       torch.tensor(t, dtype=torch.int32))
+        outs.append(logits)
+    np.testing.assert_allclose(_np(torch.cat(outs, 1)), _np(full), **F32)
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_verify_and_reset_match_reference(name):
+    """``decode_verify`` (the single-token step over L positions, from
+    ragged depths, one row masked) and ``reset_cache_slots`` (recurrent
+    state and KV rows zeroed: batch axis 2 of the reference's groups,
+    axis 0 of every port tensor) against the reference's, from a cache
+    of random state."""
+    rcfg, pcfg = _rec_cfgs(name)
+    rp, pp = _rec_weights(name)
+    B, max_len = 2, 24
+    rng = np.random.default_rng(8)
+    rand = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32),
+        RM.init_cache(rcfg, B, max_len, dtype=jnp.float32))
+    rcache = jax.tree.map(jnp.asarray, rand)
+    pcache = cache_from_jax(rand, pcfg, device="cpu")
+    toks = _tokens(rcfg, B, 3, 9)
+    cl = np.array([4, 10], np.int32)
+    wm = np.array([True, False])
+    rlog, rcache = RM.decode_verify(rp, rcfg, jnp.asarray(toks), rcache,
+                                    jnp.asarray(cl),
+                                    write_mask=jnp.asarray(wm))
+    plog, pcache = PM.decode_verify(pp, pcfg, torch.from_numpy(toks),
+                                    pcache, torch.from_numpy(cl),
+                                    write_mask=torch.from_numpy(wm))
+    np.testing.assert_allclose(_np(plog), np.asarray(rlog), **F32)
+
+    def close(a, b):
+        np.testing.assert_allclose(a, b, **F32)
+    _close_trees(pcache, rcache, pcfg, close)
+    mask = np.array([False, True])
+    want = RM.reset_cache_slots(rcfg, rcache, jnp.asarray(mask))
+    got = PM.reset_cache_slots(pcfg, pcache, torch.from_numpy(mask))
+    _close_trees(got, want, pcfg, close)
+    from repro_torch.tree import tree_leaves
+    assert all(not t[1].any() and t[0].any() for t in tree_leaves(got))
+    with pytest.raises(ValueError, match="decode_verify"):
+        PM.decode_step(pp, pcfg, torch.from_numpy(toks), got,
+                       torch.from_numpy(cl))
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+@pytest.mark.parametrize("fuse", [False, True], ids=["plain", "fused"])
+def test_recurrent_loss_matches_reference(name, fuse):
+    """``loss_fn`` and its gradient, through remat (each pair, or each
+    group with the shared block after it, is one unit): losses within
+    abs 1e-5, gradients within rtol 1e-4 / atol 2e-6
+    (``tests/test_torch_loss.py``'s limits); zamba2's shared block's
+    gradient is its uses' sum."""
+    from repro_torch.tree import tree_leaves, tree_map
+    rcfg, pcfg = _rec_cfgs(name)
+    rp, pp = _rec_weights(name)
+    b = _family_batch(rcfg, 2, 64, 9, labels=True)
+    (rl, rm), rg = jax.jit(jax.value_and_grad(
+        lambda p, bb: RM.loss_fn(p, rcfg, bb, fuse_ce=fuse, ce_chunk=16,
+                                 ssd_chunk=16), has_aux=True))(rp, _j(b))
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(), pp)
+    pl, pm = PM.loss_fn(p, pcfg, _t(b), fuse_ce=fuse, ce_chunk=16,
+                        ssd_chunk=16)
+    assert pcfg.remat == "full"
+    grads = torch.autograd.grad(pl, tree_leaves(p))
+    assert abs(float(pl.detach()) - float(rl)) <= 1e-5
+    assert float(pm["aux"]) == float(rm["aux"]) == 0.0
+    want = tree_leaves(params_from_jax(jax.tree.map(np.asarray, rg), pcfg,
+                                       device="cpu"))
+    assert len(want) == len(grads)
+    for a, w in zip(grads, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=2e-6)
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-1.2b"])
+def test_recurrent_cast_params_keep_the_numbers(name):
+    """The compute-dtype copy keeps sLSTM's recurrence float32 (the
+    reference multiplies it with the float32 state) and gives the same
+    logits as casting at every use."""
+    _, pcfg = _rec_cfgs(name, "bfloat16")
+    _, pp = _rec_weights(name)
+    toks = torch.from_numpy(_tokens(pcfg, 2, 16, 3))
+    cast = PM.cast_params(pp, pcfg)
+    if pcfg.family == "ssm":
+        assert cast["pairs"][0]["s"]["r"].dtype == torch.float32
+        assert cast["pairs"][0]["s"]["w"].dtype == torch.bfloat16
+    else:
+        assert cast["groups"][0][0]["ssm"]["A_log"].dtype == torch.float32
+        assert cast["groups"][0][0]["ssm"]["conv_x"].dtype == torch.bfloat16
+    a, _ = PM.forward(pp, pcfg, {"tokens": toks})
+    b, _ = PM.forward(cast, pcfg, {"tokens": toks})
+    assert torch.equal(a, b)

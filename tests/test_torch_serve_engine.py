@@ -1,21 +1,24 @@
 """Port parity: ``repro_torch.serve.engine`` against the JAX package's.
 
 * Counterparts of ``tests/test_serve_admission.py``, of
-  ``tests/test_serve_ragged.py`` for the KV-cache families (dense
-  ``qwen3-1.7b`` and moe ``qwen3-moe-30b-a3b``, reduced) and of
-  ``tests/test_substrates.py``'s engine cases, on the port, with the
-  reference's assertions and the reference's seed-0 weights
-  (``params_from_jax``), on the CPU.
+  ``tests/test_serve_ragged.py`` for the four cache families (dense
+  ``qwen3-1.7b``, moe ``qwen3-moe-30b-a3b``, ssm ``xlstm-125m`` and
+  hybrid ``zamba2-1.2b``, reduced) and of ``tests/test_substrates.py``'s
+  engine cases, on the port, with the reference's assertions and the
+  reference's seed-0 weights (``params_from_jax``), on the CPU.
+* Speculation with rejected drafts on the recurrent families: the
+  window-start checkpoint, the verify from its copy, the rollback and
+  the ``serve/replay`` run, and the tokens equal the baseline's.
 * Port against reference: the same prompts and weights give equal
   ``out_tokens`` in float32 compute and a float32 cache, baseline and
-  speculative (``spec_len`` 4), for both families.
+  speculative (``spec_len`` 4), for the four families.
 * C6: after a warm-up run in each package, the region names the marker
   is set to during a second, identical run are the same in both, and
   none is a model-inner region (``moe_router`` and ``moe_ffn``
   included; the reference's jitted steps run their regions only while
   being traced; the port runs its steps inside ``regions.opaque()``).
-* The launcher serves a reduced dense and a reduced vlm config
-  (``internvl2-1b``, tokens only, as the reference's launcher sends).
+* The launcher serves a reduced dense, vlm (``internvl2-1b``, tokens
+  only, as the reference's launcher sends), ssm and hybrid config.
 * Device handling: the engine and the launcher default to the GPU and
   raise without one; params on another device are refused.
 """
@@ -25,8 +28,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from _torch_serve_pkgs import (KV_ARCHS, PORT, REF, make_engine, prompts,
-                               setup, weights)
+from _torch_serve_pkgs import (CACHE_ARCHS, PORT, RECURRENT_ARCHS, REF,
+                               make_engine, prompts, setup, weights)
 from repro_torch.core import regions as regions_mod
 from repro_torch.core.sampler import SampleBuffer
 from repro_torch.launch import serve as launch_serve
@@ -37,7 +40,9 @@ from repro_torch.serve.engine import (Engine, PhaseEnergyAccountant,
                                       ServeConfig, ServeTimeoutError)
 
 MODEL_INNER = {"embed", "attn", "attn_decode", "attn_score", "ffn",
-               "moe_router", "moe_ffn", "lm_head"}
+               "moe_router", "moe_ffn", "lm_head", "ssm_proj", "ssm_scan",
+               "ssm_out", "ssm_decode", "mlstm_scan", "slstm_scan",
+               "mlstm_decode", "shared_attn"}
 
 
 @pytest.fixture(scope="module")
@@ -45,8 +50,8 @@ def arch_setup():
     return setup(PORT)
 
 
-@pytest.fixture(scope="module", params=KV_ARCHS)
-def kv_setup(request):
+@pytest.fixture(scope="module", params=CACHE_ARCHS)
+def cache_setup(request):
     return setup(PORT, arch=request.param)
 
 
@@ -315,8 +320,8 @@ def _run_staggered(make, prompts_, max_new=8):
     return [r.out_tokens for r in reqs], eng
 
 
-def test_ragged_staggered_matches_sequential(kv_setup):
-    cfg, params = kv_setup
+def test_ragged_staggered_matches_sequential(cache_setup):
+    cfg, params = cache_setup
     ps = _prompts(cfg)
     seq = [_run_alone(cfg, params, p, i) for i, p in enumerate(ps)]
     got, _ = _run_staggered(lambda: _engine(cfg, params, _scfg()), ps)
@@ -324,8 +329,8 @@ def test_ragged_staggered_matches_sequential(kv_setup):
         assert got[i] == seq[i], f"request {i} diverged"
 
 
-def test_admission_mid_decode_leaves_active_request_unchanged(kv_setup):
-    cfg, params = kv_setup
+def test_admission_mid_decode_leaves_active_request_unchanged(cache_setup):
+    cfg, params = cache_setup
     ps = _prompts(cfg, lengths=(9, 6))
     base = _run_alone(cfg, params, ps[0], 0, max_new=10)
     eng = _engine(cfg, params, _scfg())
@@ -342,8 +347,8 @@ def test_admission_mid_decode_leaves_active_request_unchanged(kv_setup):
     assert r0.out_tokens == base, "mid-decode admission corrupted r0"
 
 
-def test_ragged_depths_decode_to_distinct_positions(kv_setup):
-    cfg, params = kv_setup
+def test_ragged_depths_decode_to_distinct_positions(cache_setup):
+    cfg, params = cache_setup
     ps = _prompts(cfg, lengths=(2, 20), seed=7)
     solo = [_run_alone(cfg, params, p, i, max_new=6)
             for i, p in enumerate(ps)]
@@ -359,8 +364,8 @@ def test_ragged_depths_decode_to_distinct_positions(kv_setup):
     assert [r.out_tokens for r in reqs] == solo
 
 
-def test_slot_reuse_does_not_inherit_previous_state(kv_setup):
-    cfg, params = kv_setup
+def test_slot_reuse_does_not_inherit_previous_state(cache_setup):
+    cfg, params = cache_setup
     ps = _prompts(cfg, lengths=(8, 5), seed=11)
     solo_b = _run_alone(cfg, params, ps[1], 1, max_new=6)
     eng = _engine(cfg, params, _scfg())
@@ -387,8 +392,8 @@ def _scfg_spec(spec_len=4, **kw):
                        spec_len=spec_len, spec_window=8, spec_sinks=2, **kw)
 
 
-def test_speculative_staggered_token_exact(kv_setup):
-    cfg, params = kv_setup
+def test_speculative_staggered_token_exact(cache_setup):
+    cfg, params = cache_setup
     ps = _prompts(cfg)
     base, _ = _run_staggered(lambda: _engine(cfg, params, _scfg()), ps)
     spec, eng = _run_staggered(lambda: _engine(cfg, params, _scfg_spec()),
@@ -408,8 +413,8 @@ def test_speculative_staggered_token_exact(kv_setup):
     assert cov["counters"]["drafted"] == rep.drafted
 
 
-def test_speculative_narrow_window_rolls_back_token_exact(kv_setup):
-    cfg, params = kv_setup
+def test_speculative_narrow_window_rolls_back_token_exact(cache_setup):
+    cfg, params = cache_setup
     ps = _prompts(cfg, lengths=(13, 4, 9), seed=3)
     base, _ = _run_staggered(lambda: _engine(cfg, params, _scfg()), ps,
                              max_new=10)
@@ -419,6 +424,54 @@ def test_speculative_narrow_window_rolls_back_token_exact(kv_setup):
                                max_new=10)
     assert spec == base
     assert eng.report.drafted > 0
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_speculative_rejected_drafts_roll_back_token_exact(arch,
+                                                         monkeypatch):
+    """Rejected drafts on a recurrent family: every other draft pass
+    proposes the runner-up token (the draft pass still advances the
+    recurrent state on it), so windows are cut and the engine must
+    restore its window-start checkpoint and replay the accepted tokens
+    (``serve/replay``). Float32, as the token-exactness contract is
+    checked on the card; the tokens equal the non-speculative run's."""
+    cfg, params = setup(PORT, "float32", arch)
+    ps = _prompts(cfg, lengths=(13, 4, 9), seed=3)
+    scfg = dict(max_batch=3, max_len=64, eos_token=-1,
+                cache_dtype="float32")
+    base, _ = _run_staggered(
+        lambda: _engine(cfg, params, ServeConfig(**scfg)), ps, max_new=10)
+    calls = [0]
+
+    def make():
+        eng = _engine(cfg, params, ServeConfig(
+            **scfg, spec_len=4, spec_window=8, spec_sinks=2))
+        draft = eng._draft_step
+
+        def wrong_half_the_time(p, t, c, l, m):
+            logits, c = draft(p, t, c, l, m)
+            calls[0] += 1
+            if calls[0] % 2:
+                second = logits.topk(2, dim=-1).indices[..., 1:]
+                logits = logits.scatter(-1, second, logits.amax(-1, True)
+                                        + 1.0)
+            return logits, c
+        eng._draft_step = wrong_half_the_time
+        return eng
+
+    phases = []
+    orig = regions_mod.region
+
+    def spy(name):
+        phases.append(name)
+        return orig(name)
+    monkeypatch.setattr(regions_mod, "region", spy)
+    spec, eng = _run_staggered(make, ps, max_new=10)
+    rep = eng.report
+    assert spec == base
+    assert rep.rejected > 0 and rep.rollbacks > 0
+    assert rep.accepted + rep.rejected == rep.drafted
+    assert "serve/replay" in phases
 
 
 def test_speculative_requires_greedy_sampler(arch_setup):
@@ -503,7 +556,7 @@ def _first_divergence(got, want, ps, cfg, params):
     return "streams equal"
 
 
-@pytest.mark.parametrize("arch", KV_ARCHS)
+@pytest.mark.parametrize("arch", CACHE_ARCHS)
 @pytest.mark.parametrize("spec_len", [0, 4], ids=["baseline", "spec4"])
 def test_tokens_equal_reference_float32(spec_len, arch):
     ps = prompts(256, (7, 3, 11), 42)
@@ -543,7 +596,7 @@ def _marker_names(pkg, cfg, params, scfg, ps):
     return [names[i] for i in marker.seen]
 
 
-@pytest.mark.parametrize("arch", KV_ARCHS)
+@pytest.mark.parametrize("arch", CACHE_ARCHS)
 @pytest.mark.parametrize("spec_len", [0, 4], ids=["baseline", "spec4"])
 def test_marker_sequence_equals_reference(spec_len, arch):
     ps = prompts(256, (4, 6, 3), 5)
@@ -609,12 +662,12 @@ class _HostWaits(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("spec_len", [0, 4], ids=["baseline", "spec4"])
-def test_engine_steps_never_wait_for_the_device(kv_setup, spec_len):
+def test_engine_steps_never_wait_for_the_device(cache_setup, spec_len):
     """The masked decode, draft and verify steps queue their work without
     a host wait (the write mask's restore is a select; rope's frequencies
     are made once), so on the GPU the host runs ahead of the device until
     the engine reads the sampled tokens."""
-    cfg, params = kv_setup
+    cfg, params = cache_setup
     eng = _engine(cfg, params, _scfg_spec(spec_len))
     eng.add_request(Request(0, _prompt(cfg, 6), max_new_tokens=8))
     toks = torch.zeros((3, 1), dtype=torch.int32)
@@ -652,7 +705,8 @@ def test_engine_refuses_params_on_another_device(arch_setup):
         Engine(cfg, params, _scfg(), device="meta")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "internvl2-1b",
+                                  "xlstm-125m", "zamba2-1.2b"])
 def test_launcher_serves_every_request(capsys, arch):
     done, engine, sess = launch_serve.main(
         ["--arch", arch, "--smoke", "--device", "cpu",

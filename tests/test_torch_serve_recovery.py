@@ -1,7 +1,8 @@
 """Port parity: ``repro_torch.serve.recovery`` — the counterparts of
 ``tests/test_serve_recovery.py`` for the dense family (``qwen3-1.7b``)
-on the port (kill mid-speculation for the moe family too,
-``qwen3-moe-30b-a3b``, as the reference's ``SPEC_ARCHS`` has it), and
+on the port (kill mid-speculation for all four cache families: moe
+``qwen3-moe-30b-a3b``, ssm ``xlstm-125m`` and hybrid ``zamba2-1.2b``
+too, as the reference's ``SPEC_ARCHS`` has it), and
 snapshots that cross between the packages: a snapshot
 written by the reference's engine, restored by the port's and run to the
 end, gives the reference's uninterrupted tokens (float32 compute and
@@ -11,7 +12,7 @@ cache), and the reverse.
 import numpy as np
 import pytest
 
-from _torch_serve_pkgs import (KV_ARCHS, PORT, REF, make_engine, prompts,
+from _torch_serve_pkgs import (CACHE_ARCHS, PORT, REF, make_engine, prompts,
                                restore, setup)
 from repro_torch.core import exchange as ex
 from repro_torch.core import faults
@@ -193,7 +194,7 @@ def test_overload_ladder_sheds_and_widens(arch_setup):
     assert rep.rejected_full <= rep.shed
 
 
-@pytest.mark.parametrize("arch", KV_ARCHS)
+@pytest.mark.parametrize("arch", CACHE_ARCHS)
 def test_kill_restore_mid_speculation_bit_exact(arch, tmp_path):
     cfg, params = setup(PORT, arch=arch)
     scfg = ServeConfig(max_batch=2, max_len=64, eos_token=-1,

@@ -596,3 +596,133 @@ def test_moe_launcher_on_the_cpu(tmp_path, capsys):
     names = {n for n, e in sess.estimates().by_name().items()
              if e.n_samples}
     assert names <= {"data_load", "train_step", "checkpoint", "<other>"}
+
+
+# -- the recurrent families (xlstm-125m, zamba2-1.2b) -------------------------
+
+# name → (arch, n_layers or None for the reduced config's): zamba2's
+# reduced config has 2 groups of 2 layers and no tail; "zamba2-tail" has 5
+# layers, so a tail of 1 (its own stacked leaves, its own compression
+# scale, outside remat).
+RECURRENT = {"xlstm-125m": ("xlstm-125m", None),
+             "zamba2-1.2b": ("zamba2-1.2b", None),
+             "zamba2-tail": ("zamba2-1.2b", 5)}
+# The share of elements whose first gradient is below 10·eps (Adam's
+# first update of those follows rounding), and, without compression, of
+# all rounding-led ones.
+REC_NOISE_CAP = 5e-3
+REC_ROUNDED_CAP = 5e-3
+REC_GRAD_ROUND_RTOL = 1e-2
+
+
+def _rec_cfgs(name, **kw):
+    arch, n = RECURRENT[name]
+    if n is not None:
+        kw["n_layers"] = n
+    return _cfgs(arch, **kw)
+
+
+def _first_moments(state, pcfg=None):
+    if pcfg is not None:
+        state = train_state_to_jax(state, pcfg)
+    return [np.asarray(m) for m in jax.tree.leaves(state["opt"]["mu"])]
+
+
+@pytest.mark.parametrize("compression", [False, True],
+                         ids=["plain", "compression"])
+@pytest.mark.parametrize("name", ["xlstm-125m", "zamba2-tail"])
+def test_recurrent_train_steps_match_reference(name, compression):
+    """Three float32 steps from one converted state, as
+    ``test_train_steps_match_reference``: losses within rel 1e-5,
+    gradient norms within rel 1e-4, parameters within atol 1e-2·lr
+    outside the rounding-led elements, those within 2·Σlr. zamba2's
+    shared block is used by every group, so its gradient is their sum;
+    AdamW decays the stacked ndim >= 2 leaves (the groups' and the
+    tail's ``A_log``, ``D``, ``dt_bias`` and norm scales, not the shared
+    block's norm scales), and compression scales each whole stacked leaf
+    (the groups' over all their layers, the tail's apart). zamba2 runs
+    with a tail (5 layers: two groups of 2 and a tail of 1), which holds
+    the groups' leaves and the tail's.
+
+    Rounding-led, besides the first-gradient and int8-code rules: an
+    element whose first moment after some step differs between the
+    packages by more than ``REC_GRAD_ROUND_RTOL`` of it (its gradients
+    are cancellations of larger terms, and Adam's division by the
+    gradient's own scale carries their rounding into the parameter; the
+    rule chip_smoke's moe train check applies to the gradients)."""
+    rcfg, pcfg = _rec_cfgs(name, compute_dtype="float32")
+    kw = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+    ropt, popt = r_adamw.AdamWConfig(**kw), AdamWConfig(**kw)
+    rs = _ref_state(rcfg, ropt, compression=compression)
+    ps = train_state_from_jax(rs, pcfg, device="cpu")
+    rstep = jax.jit(r_step.make_train_step(rcfg, ropt,
+                                           compression=compression))
+    pstep = make_train_step(pcfg, popt, compression=compression)
+    data = SyntheticTokens(vocab_size=pcfg.vocab_size, seq_len=32,
+                           global_batch=8)
+    lrs = []
+    for i in range(3):
+        b = data.batch(i)
+        rs, rm = rstep(rs, _ref_batch(b))
+        ps, pm = pstep(ps, _port_batch(b))
+        if i == 0:
+            g1 = _first_grads(rs, ropt)
+            noise = [(np.abs(g) < 10 * popt.eps) & (g != 0) for g in g1]
+            n_first = sum(int(m.sum()) for m in noise)
+        noise = [m | (np.abs(a - b) > REC_GRAD_ROUND_RTOL * np.abs(b))
+                 for m, a, b in zip(noise, _first_moments(ps, pcfg),
+                                    _first_moments(rs))]
+        if compression:           # a code rounded the other way: a quantum
+            noise = [m | (np.abs(a - b) > 1e-6) for m, a, b in zip(
+                noise, _residuals(ps, pcfg), _residuals(rs))]
+        for k in ("loss", "ce"):
+            assert float(pm[k]) == pytest.approx(float(rm[k]),
+                                                 rel=LOSS_RTOL), k
+        assert float(pm["grad_norm"]) == pytest.approx(
+            float(rm["grad_norm"]), rel=1e-4)
+        lrs.append(float(rm["lr"]))
+    n_noise = _check_params(_params(ps, pcfg), _params(rs), noise, popt,
+                            lrs)
+    n_el = sum(x.size for x in g1)
+    # The B/C and dt projections' first gradients are tiny with random
+    # weights (3-5% of in_bc's and in_dt's elements below 10·eps: 1 844
+    # of 759 920 elements on zamba2 with a tail).
+    assert n_first < REC_NOISE_CAP * n_el
+    # Measured: 1.8e-3 to 3.0e-3 of the elements without compression;
+    # with it the codes rounded apart (and what they move) reach 1.8%,
+    # within the 5e-2 of test_train_steps_match_reference's third step.
+    cap = 5e-2 if compression else REC_ROUNDED_CAP
+    assert n_noise < cap * n_el, n_noise
+
+
+@pytest.mark.parametrize("compression", [False, True],
+                         ids=["plain", "compression"])
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_train_state_round_trip_is_bitwise(name, compression):
+    rcfg, pcfg = _rec_cfgs(name)
+    rs = _ref_state(rcfg, r_adamw.AdamWConfig(), seed=3,
+                    compression=compression)
+    ps = train_state_from_jax(rs, pcfg, device="cpu")
+    if pcfg.family == "hybrid":
+        groups = ps["params"]["groups"]
+        assert len(groups) == 2 and all(len(g) == 2 for g in groups)
+        assert ("tail" in ps["params"]) == (name == "zamba2-tail")
+    back = train_state_to_jax(ps, pcfg)
+    assert jax.tree.structure(back) == jax.tree.structure(rs)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(rs)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-1.2b"])
+def test_recurrent_launcher_on_the_cpu(tmp_path, capsys, arch):
+    result, sess, trainer = launch_train.main(
+        ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+         "--ckpt-dir", str(tmp_path), "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert result["final_step"] == 2
+    assert f"arch={arch}-smoke" in out
+    assert all(np.isfinite(m["loss"]) for m in result["metrics"])
+    names = {n for n, e in sess.estimates().by_name().items()
+             if e.n_samples}
+    assert names <= {"data_load", "train_step", "checkpoint", "<other>"}
