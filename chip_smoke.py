@@ -44,6 +44,18 @@ runs these phases, and fails (non-zero exit) if any check fails:
               by ``mark_in_jit``, and ``mark_in_jit`` in stream order (a
               long kernel queued at once takes the samples taken while
               it runs; under a watchdog);
+   energy   — the paper's §7 use case (``examples/torch/energy_tuning.py``
+              at its defaults, priced at ``core.hardware.H100_SXM``):
+              yi-6b's train_4k step on 8 chips, 150 steps synthesized,
+              the one-shot profile, then the device pipeline on the card
+              (``sample_attr``, counters set to 0 just before and read
+              just after) against the same pipeline on the CPU at 10 ms
+              (counts equal, sums rtol 1e-9), two card runs at 100 µs
+              (instant sensor, jitter 20 µs; bitwise equal, samples/s),
+              the energy-optimal plan over the card's six hotspots equal
+              to the plan over the CPU's, and no more energy than the
+              max-performance baseline; the joules are the activity
+              model's, not measured;
 4. kernel   — every kernel against its plain PyTorch version at the
               shapes its path gives it, at the stated tolerances:
               ``sample_attr`` on uniform ids (equal counts, sums to rtol,
@@ -66,6 +78,9 @@ runs these phases, and fails (non-zero exit) if any check fails:
               ``sample_attr`` row; then wall time per call of each layer
               of one chunk and, from a torch.profiler trace, kernels per
               chunk and the device's busy share (measured, not checked);
+              and ``sample_attr`` on a chunk of the energy phase's 100 µs
+              run, held and timed alike (the kernel line's ``energy``
+              path);
    combo-fold — ``sample_attr`` on combo-full's steady chunk at R = the
               table capacity, held and timed as in phase 4 (the kernel
               line's second ``sample_attr`` path), and kernels per chunk
@@ -81,7 +96,9 @@ runs these phases, and fails (non-zero exit) if any check fails:
               token; prints prefill ms and tokens/s, decode ms per step,
               peak device memory, and device time by region (``embed``,
               ``attn``, ``ffn``, ``lm_head``) from a torch.profiler trace
-              of one prefill;
+              of one prefill, and beside it the cost model's
+              (``roofline.cost_model``) predicted ms by region for that
+              prefill under ``H100_SXM`` (printed, not checked);
 7. serve    — the serving engine on the same model (bf16, random weights
               from seed 0): the launcher ``repro_torch.launch.serve``
               with its defaults (8 requests, 16 new tokens, 4 slots,
@@ -134,7 +151,10 @@ runs these phases, and fails (non-zero exit) if any check fails:
    with rejected drafts (the window-start checkpoint, its rollback and
    ``serve/replay`` run); train with every check (card vs CPU on a
    reduced zamba2 with a tail). The sLSTM scan is timed and traced
-   alone.
+   alone;
+11. examples — each of the four ``examples/torch/*.py`` as its own
+   process on the card at its smallest documented size; a non-zero exit
+   fails the run.
 
 Each phase's seconds are printed on a line of their own. The line
 before the last is a JSON object listing every kernel; the last
@@ -154,9 +174,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_FP64_PER_S = 34e12         # float64 outside the tensor cores, same sheet
-H100_BF16_PER_S = 989e12       # dense bf16 tensor cores, same sheet
 KERNEL_RTOL = 1e-10             # both f64; only the summation order differs
 PIPELINE_RTOL = 1e-9            # the reference's own device-vs-oracle limit
 # The reference's own kernel limits (tests/test_kernels.py).
@@ -315,10 +332,11 @@ def sample_attr_bound_ms(c, touched, C):
     chunk's valid lanes name) read and written once, against HBM
     bandwidth; and 1 + 3·C float64 operations per sample against the FP64
     peak. Returns (ms, "bytes"|"operations")."""
+    from repro_torch.core.hardware import H100_FP64_PER_S, H100_SXM
     carry = touched * (1 + 2 * C) * 8
     nbytes = c * (4 + 8 * C + 1) + 2 * carry
     ops = c * (1 + 3 * C)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FP64_PER_S
+    t_bytes, t_ops = nbytes / H100_SXM.hbm_bandwidth, ops / H100_FP64_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -470,9 +488,11 @@ def flash_bound_ms(B, H, KV, S, T, dh, causal, esize):
     (B·KV·T·dh) each moved once, against HBM bandwidth; and
     :func:`flash_ops` against the bf16 tensor-core peak.
     Returns (ms, "bytes"|"operations")."""
+    from repro_torch.core.hardware import H100_SXM
     nbytes = (2 * B * H * S + 2 * B * KV * T) * dh * esize
     ops = flash_ops(B, H, S, T, dh, causal)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_BF16_PER_S
+    t_bytes = nbytes / H100_SXM.hbm_bandwidth
+    t_ops = ops / H100_SXM.peak_flops_bf16
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -542,7 +562,9 @@ def rmsnorm_bound_ms(n, d, esize):
     """Least time for one RMSNorm: x read and out written once (n·d
     elements each), scale read once (float32), against HBM bandwidth (the
     ~4 operations per element are far below the compute peaks)."""
-    return (2 * n * d * esize + 4 * d) / H100_BYTES_PER_S * 1e3, "bytes"
+    from repro_torch.core.hardware import H100_SXM
+    return ((2 * n * d * esize + 4 * d) / H100_SXM.hbm_bandwidth * 1e3,
+            "bytes")
 
 
 def rmsnorm_phase(dev):
@@ -972,19 +994,21 @@ def full_phase(tl):
 
 
 class FullChunk:
-    """Chunk ``k`` of the full cell's profiling run on ``dev``, as the main
-    path folds it: ``ids`` [c] int32, ``pows`` [C, c] float64, ``valid``
-    [c] bool, with the run's clock and sensor state beside them."""
+    """Chunk ``k`` of a profiling run of ``tl`` on ``dev`` through the
+    instant sensor (by default the full cell's run), as the main path
+    folds it: ``ids`` [c] int32, ``pows`` [C, c] float64, ``valid`` [c]
+    bool, with the run's clock and sensor state beside them."""
 
-    def __init__(self, tl, dev, k=700, c=65536):
+    def __init__(self, tl, dev, k=700, c=65536, period=None, jitter=None,
+                 name="full"):
         import torch
         from repro_torch.core import device_pipeline as dp, sensors, threefry
         self.dtl = tl.to_device(device=dev)
         self.spec = sensors.InstantTraceSensor.make_spec(
             domains=tl.domain_names)
         self.k, self.c = k, c
-        self.period = tl.t_exec / 102_000_000
-        self.jitter = 0.2 * self.period
+        self.period = period or tl.t_exec / 102_000_000
+        self.jitter = 0.2 * self.period if jitter is None else jitter
         self.root = threefry.PRNGKey(0)
         self.u0 = dp._phase(self.root, self.period)
         self.prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
@@ -992,10 +1016,11 @@ class FullChunk:
             self.dtl, self.spec, self.root, self.u0, k, c, self.period,
             self.jitter, self.prev)
         self.ids = rid_mat[0]
-        self.R, self.C = self.dtl.num_regions, self.pows.shape[0]
+        self.R = self.dtl.num_regions
+        self.C = 1 if self.pows.ndim == 1 else self.pows.shape[0]
         ids = self.ids[self.valid].cpu().numpy()
         runs = 1 + int((ids[1:] != ids[:-1]).sum()) if ids.size else 0
-        log(f"full chunk k={k}: {int(self.valid.sum())} of {c} lanes valid, "
+        log(f"{name} chunk k={k}: {int(self.valid.sum())} of {c} lanes valid, "
             f"{len(set(ids.tolist()))} regions in {runs} runs (mean run "
             f"{ids.size / max(runs, 1):.0f} samples)")
 
@@ -1576,6 +1601,221 @@ def stream_order_check(prof, kernel_s=0.5, after_s=0.1):
     log(f"{what}: kernel {t_kernel:.3f} s queued in {t_issue * 1e3:.3f} ms; "
         f"gpu_long n={n_long} t_hat={t_long:.3f} s, host_after n={n_host} "
         f"(host-only {after_s} s); 2 stores queued in stream order")
+
+
+# ---------------------------------------------------------------------------
+# The §7 energy optimisation on the card (examples/torch/energy_tuning.py).
+# ---------------------------------------------------------------------------
+
+# energy_tuning's defaults: yi-6b's train_4k step on 8 chips, 150 steps.
+ENERGY_ARCH, ENERGY_SHAPE, ENERGY_CHIPS, ENERGY_STEPS = (
+    "yi-6b", "train_4k", 8, 150)
+ENERGY_PERIOD = 10e-3
+# The finer load: ~9·10^6 samples. The device clock needs jitter <= period
+# (the default 200 µs would not do), and RAPL's 1 ms counter quantum is
+# that sensor's floor, so this run reads the instant sensor.
+ENERGY_FINE_PERIOD, ENERGY_FINE_JITTER = 100e-6, 20e-6
+
+
+def _example(name):
+    """``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def energy_phase(dev):
+    """``energy_tuning``'s path at its defaults under ``H100_SXM``: region
+    costs, the synthesized timeline and the reference's one-shot profile;
+    then the same timeline through the device pipeline on the card (the
+    ``sample_attr`` kernel; launch counters set to 0 just before and read
+    just after) and on the CPU (the plain path). Checks: (a) at 10 ms the
+    card's counts equal the CPU's and the sums agree to
+    ``PIPELINE_RTOL``; (b) at 100 µs two card runs are bitwise equal;
+    (c) the energy-optimal plan over the card's six dominant regions is
+    the plan over the CPU's six; (d) the plan spends no more energy than
+    the max-performance baseline. Returns the launches and a chunk of
+    the 100 µs run for the kernel line's ``energy`` row."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import EnergyProfiler, PowerModel, synthesize
+    from repro_torch.core import device_pipeline as dp
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.roofline.cost_model import step_region_costs
+    et = _example("energy_tuning")
+    model = PowerModel(hw=H100_SXM)
+    t0 = time.perf_counter()
+    costs = step_region_costs(get_config(ENERGY_ARCH), SHAPES[ENERGY_SHAPE],
+                              chips=ENERGY_CHIPS)
+    tl = synthesize(costs, steps=ENERGY_STEPS, chips=ENERGY_CHIPS,
+                    model=model, seed=0)
+    one = EnergyProfiler(period=ENERGY_PERIOD, device=dev).profile_timeline(
+        tl, sensor="rapl")
+    log(f"energy: {ENERGY_ARCH} x {ENERGY_SHAPE} x {ENERGY_CHIPS} chips x "
+        f"{ENERGY_STEPS} steps under {H100_SXM.name}: {len(tl.names)} "
+        f"regions, {len(tl.region_ids)} intervals, t_exec={tl.t_exec:.3f} s; "
+        f"one-shot profile {one.n_total} samples "
+        f"({time.perf_counter() - t0:.2f} s with the synthesis)")
+
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    with captured_aggregators() as card_aggs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = EnergyProfiler(period=ENERGY_PERIOD, device=dev
+                              ).profile_timeline_streaming(
+            tl, sensor="rapl", pipeline="device")
+        secs = time.perf_counter() - t0
+    coarse = {c.__name__: c.launches for c in counters}
+    with captured_aggregators() as cpu_aggs:
+        cpu = EnergyProfiler(period=ENERGY_PERIOD, device="cpu"
+                             ).profile_timeline_streaming(
+            tl, sensor="rapl", pipeline="device")
+    chunks = dp.num_chunks(tl.t_exec, ENERGY_PERIOD, 65536)
+    check(coarse["sample_attr_fold"] == chunks,
+          f"energy (a): sample_attr launches {coarse['sample_attr_fold']} "
+          f"== chunks {chunks}")
+    check(card.n_total == cpu.n_total, "energy (a): n")
+    got = card_aggs[0].channel_statistics()
+    want = cpu_aggs[0].channel_statistics()
+    check(np.array_equal(got[0], want[0]), "energy (a): counts")
+    check(all(np.allclose(g, w, rtol=PIPELINE_RTOL, atol=0.0)
+              for g, w in zip(got[1:], want[1:])),
+          f"energy (a): sums rtol {PIPELINE_RTOL}")
+    log(f"energy (a): {card.n_total} samples at {ENERGY_PERIOD * 1e3:g} ms "
+        f"(rapl) in {secs:.3f} s on the card, {chunks} chunks, "
+        f"{coarse['sample_attr_fold']} sample_attr launches; counts equal to "
+        f"the CPU's, sums rtol {PIPELINE_RTOL}")
+
+    fine = EnergyProfiler(period=ENERGY_FINE_PERIOD,
+                          jitter=ENERGY_FINE_JITTER, device=dev)
+    fine_chunks = dp.num_chunks(tl.t_exec, ENERGY_FINE_PERIOD, 65536)
+    runs = []
+    for _ in range(2):
+        for c in counters:
+            c.launches = 0
+        with captured_aggregators() as aggs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est = fine.profile_timeline_streaming(tl, sensor="instant",
+                                                  pipeline="device")
+            s = time.perf_counter() - t0
+        runs.append(dict(n=est.n_total, seconds=s, agg=aggs[0],
+                         launches={c.__name__: c.launches
+                                   for c in counters}))
+    check(all(r["launches"]["sample_attr_fold"] == fine_chunks for r in runs),
+          f"energy (b): sample_attr launches == chunks {fine_chunks}")
+    check(_agg_bits_equal(runs[0]["agg"], runs[1]["agg"]),
+          "energy (b): two card runs bitwise equal")
+    log(f"energy (b): {runs[0]['n']} samples at "
+        f"{ENERGY_FINE_PERIOD * 1e6:g} µs (instant, jitter "
+        f"{ENERGY_FINE_JITTER * 1e6:g} µs), {fine_chunks} chunks a run; two "
+        f"card runs bitwise equal; "
+        + ", ".join(f"{r['seconds']:.3f} s ({r['n'] / r['seconds']:.4e} "
+                    f"samples/s)" for r in runs))
+
+    kw = dict(chips=ENERGY_CHIPS, objective="energy", model=model)
+    base, plan = et.plan_hotspots(costs, card, **kw)
+    base_cpu, plan_cpu = et.plan_hotspots(costs, cpu, **kw)
+    log(f"energy hotspots: card {[r.name for r in card.dominant(6)]}; CPU "
+        f"{[r.name for r in cpu.dominant(6)]}; one-shot "
+        f"{[r.name for r in one.dominant(6)]}")
+    check(plan == plan_cpu and base == base_cpu,
+          "energy (c): the card's plan is the CPU's")
+    check(plan.energy <= base.energy, "energy (d): plan <= baseline energy")
+    log("energy baseline (max perf):\n" + base.table())
+    log("energy energy-optimal per-region plan:\n" + plan.table())
+    log(f"energy (c), (d): plans equal; whole-hotspot energy saving "
+        f"{(1 - plan.energy / base.energy) * 100:.2f}%, time "
+        f"{(plan.time / base.time - 1) * 100:+.2f}% ({et.MODEL_NOTE}; "
+        f"priced at {H100_SXM.name}'s peaks)")
+
+    chunk = FullChunk(tl, dev, k=fine_chunks // 2, period=ENERGY_FINE_PERIOD,
+                      jitter=ENERGY_FINE_JITTER, name="energy")
+    launches = {name: coarse[name] + sum(r["launches"][name] for r in runs)
+                for name in coarse}
+    check(launches["flash_attention"] == launches["rmsnorm"] == 0,
+          f"energy: other kernels launched {launches}")
+    return dict(launches=launches, chunk=chunk,
+                path=f"energy path: {ENERGY_ARCH} x {ENERGY_SHAPE} timeline "
+                     f"({len(tl.names)} regions), "
+                     f"{coarse['sample_attr_fold']} launches at "
+                     f"{ENERGY_PERIOD * 1e3:g} ms + 2 x {fine_chunks} at "
+                     f"{ENERGY_FINE_PERIOD * 1e6:g} µs; timed on chunk "
+                     f"k={chunk.k} of the 100 µs run (c=65536, "
+                     f"R={chunk.R}, C={chunk.C})")
+
+
+def cost_model_line(m, spans):
+    """The cost model's per-region prefill time under ``H100_SXM``
+    (``step_region_costs`` at ``ShapeConfig(kind="prefill")``, each
+    region's invocations × ``PowerModel.region_duration`` at its default
+    efficiency) beside the device ms by region the model breakdown
+    measured; ``attn_qkv``, ``attn_score`` and ``attn_out`` sum onto the
+    model's ``attn``. Printed only, not checked."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import PowerModel
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.roofline.cost_model import step_region_costs
+    pm = PowerModel(hw=H100_SXM)
+    shape = ShapeConfig("prefill", MODEL_PROMPT, MODEL_BATCH, "prefill")
+    pred = {}
+    for c in step_region_costs(m["cfg"], shape, chips=1):
+        r = "attn" if c.name.startswith("attn_") else c.name
+        pred[r] = pred.get(r, 0.0) + c.invocations * pm.region_duration(
+            c.flops, c.hbm_bytes, c.ici_bytes) * 1e3
+    log(f"cost model vs card, {m['cfg'].name} prefill B={MODEL_BATCH} x "
+        f"{MODEL_PROMPT} under {H100_SXM.name} (predicted ms / measured "
+        f"device ms; printed, not checked): "
+        + ", ".join(f"{r} {ms:.3f} / "
+                    + (f"{spans[r]:.3f}" if r in spans else "not measured")
+                    for r, ms in pred.items())
+        + f" (sum {sum(pred.values()):.3f} / "
+        f"{sum(spans.get(r, 0.0) for r in pred):.3f})")
+
+
+# smallest documented size of each example; train_lm's --ckpt-dir is added
+EXAMPLES = (("quickstart", ["--steps", "5"]),
+            ("train_lm", ["--smoke"]),
+            ("serve_demo", ["--requests", "2", "--new-tokens", "16"]),
+            ("energy_tuning", []))
+
+
+def examples_phase():
+    """Each of the port's four examples as its own process, on the card
+    (their default device), at its smallest documented size; a non-zero
+    exit fails the run. Prints each one's seconds and last line."""
+    import shutil
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    try:
+        for name, args in EXAMPLES:
+            if name == "train_lm":
+                args = args + ["--ckpt-dir", ckpt]
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "examples", "torch",
+                                              f"{name}.py"), *args],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=300)
+            secs = time.perf_counter() - t0
+            if res.returncode != 0:
+                log(res.stdout[-4000:])
+                log(res.stderr[-4000:])
+            check(res.returncode == 0,
+                  f"examples: {name} exited {res.returncode}")
+            last = res.stdout.strip().splitlines()[-1]
+            log(f"examples: {name} {' '.join(args)}: exit 0 in {secs:.2f} s;"
+                f" last line: {last.strip()}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3349,19 +3589,27 @@ def main():
         host_seam_phase()
     with phase("host-session"):
         host_session_phase(dev)
+    with phase("energy"):
+        energy = energy_phase(dev)
     with phase("kernel"):
         kernel_phase(dev)
         flash_row = flash_phase(dev)
         rmsnorm_row = rmsnorm_phase(dev)
     with phase("breakdown"):
         fold = breakdown_phase(tl)
+        ech = energy.pop("chunk")
+        energy_fold = fold_row(f"energy chunk k={ech.k}", ech.R, ech.C,
+                               ech.ids, ech.pows, ech.valid)
+        del ech
     with phase("combo-fold"):
         combo_fold = combo_fold_phase(combo)
     del tl, combo["chunk"]
-    paths = {}                  # path -> its launch counts
+    paths = {"energy_launches": energy["launches"]}  # path -> launches
     with phase(f"model {MODEL_ARCH}"):
         model = model_phase(dev)
-        model_breakdown(model)
+        bd = model_breakdown(model)
+        if bd:
+            cost_model_line(model, bd["prefill_region_ms"])
         paths["launches"] = model["launches"]
     del model
     with phase(f"serve {MODEL_ARCH}"):
@@ -3414,9 +3662,12 @@ def main():
         paths["xlstm_serve_launches"] = serve_phase(dev, SSM_ARCH)["launches"]
     with phase(f"train {SSM_ARCH}"), watchdog(900, "ssm train phase"):
         paths["xlstm_train_launches"] = train_phase(dev, SSM_ARCH)["launches"]
+    with phase("examples"):
+        examples_phase()
 
     split = fold.pop("split_ms")
     combo_fold.pop("split_ms")
+    energy_fold.pop("split_ms")
     fold_check = (f"counts equal, sums rtol {KERNEL_RTOL}, bitwise "
                   f"repeatable, bitwise equal to sample_attr_fold_emulated")
     region_path = dict(
@@ -3428,6 +3679,10 @@ def main():
         path=f"combination path: combo-full's steady chunk (c=65536, "
              f"W={COMBO_WORKERS}, R=capacity {combo['cap']}, C=4)",
         check=fold_check)
+    energy_path = dict(
+        launches=energy["launches"]["sample_attr_fold"], **energy_fold,
+        path=energy["path"], check=fold_check)
+
     def path_launches(kernel):
         return {k: v[kernel] for k, v in paths.items() if k != "launches"}
 
@@ -3435,7 +3690,7 @@ def main():
         name="sample_attr", route="cuda",
         source="src/repro_torch/kernels/sample_attr/sample_attr.cu",
         replaces="src/repro/kernels/sample_attr/sample_attr.py:80",
-        **region_path, paths=[region_path, combo_path],
+        **region_path, paths=[region_path, combo_path, energy_path],
         **path_launches("sample_attr_fold")),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/"

@@ -1,14 +1,18 @@
 """ALEA core: fine-grain energy profiling with region (basic-block) sampling.
 
-The port's surface covers what its slices have ported so far: the host
-numpy modules, the device pipeline (single-worker and combination), the
-profiler with its host sessions, the region markers (``core.regions``)
-and the cross-host shard exchange (``core.exchange``). Energy
-optimisation is not ported yet, and nothing here imports it.
+The port's surface is the reference's: the host numpy modules, the
+device pipeline (single-worker and combination), the profiler with its
+host sessions, the region markers (``core.regions``), the cross-host
+shard exchange (``core.exchange``) and the §7 per-region energy
+optimisation (``core.energy_opt``). ``core.hardware`` adds the card's
+``H100_SXM`` spec beside the reference's ``TPU_V5E``.
 """
 
 from repro_torch.core.attribution import (AttributionReport,
                                           ValidationResult, validate)
+from repro_torch.core.energy_opt import (ImplVariant, KnobSpace, ProgramPlan,
+                                         RegionPlan, baseline_plan,
+                                         optimize_regions)
 from repro_torch.core.estimator import (AggregateFn, EstimateSet,
                                         EstimateTable, RegionEstimate,
                                         aggregate_samples_np,
@@ -38,6 +42,8 @@ from repro_torch.core.timeline import (RegionCost, Timeline, ground_truth,
 
 __all__ = [
     "AttributionReport", "ValidationResult", "validate",
+    "ImplVariant", "KnobSpace", "ProgramPlan", "RegionPlan",
+    "baseline_plan", "optimize_regions",
     "AggregateFn", "EstimateSet", "EstimateTable", "RegionEstimate",
     "aggregate_samples_np", "estimate_combinations", "estimate_regions",
     "estimates_from_statistics", "z_quantile",

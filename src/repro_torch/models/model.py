@@ -204,7 +204,11 @@ def _embed(p: Params, cfg: ModelConfig, batch: dict):
         x = x + _sinusoidal(x.shape[1], cfg.d_model, dt, x.device)[None]
     else:
         with region("embed"):
-            x = p["embed"].to(dt)[batch["tokens"]]
+            # F.embedding, not indexing: indexing's backward accumulates
+            # in a thread-dependent order on the CPU, so its gradient
+            # would not repeat bit for bit.
+            x = torch.nn.functional.embedding(batch["tokens"],
+                                              p["embed"].to(dt))
         if cfg.family == "vlm" and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(dt), x], dim=1)
     B, S = x.shape[:2]

@@ -1,6 +1,7 @@
-"""Static guard: the port stands alone. No module of ``src/repro_torch/``
-and not ``chip_smoke.py`` imports JAX or the JAX package (``repro``);
-``repro_torch`` itself is fine. Parsed with ``ast``, nothing imported."""
+"""Static guard: the port stands alone. No module of ``src/repro_torch/``,
+no example of ``examples/torch/`` and not ``chip_smoke.py`` imports JAX
+or the JAX package (``repro``); ``repro_torch`` itself is fine. Parsed
+with ``ast``, nothing imported."""
 
 import ast
 from pathlib import Path
@@ -8,8 +9,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "examples" / "torch").glob("*.py"))
+         + [ROOT / "chip_smoke.py"])
 
 
 def _forbidden(name: str) -> bool:
@@ -41,6 +43,7 @@ def _imports(path: Path):
 def test_the_guard_sees_the_port():
     assert len(FILES) > 20
     assert any(p.name == "model.py" for p in FILES)
+    assert sum(p.parent.name == "torch" for p in FILES) == 4
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -293,6 +293,33 @@ def test_training_reduces_loss():
     assert losses[-1] < losses[0] - 0.3, losses[::6]
 
 
+@pytest.mark.parametrize("arch", [ARCH, "xlstm-125m"])
+def test_cpu_steps_repeat_bit_for_bit(arch):
+    """Three float32 steps with compression, twice from one state on four
+    CPU threads, end in the same state bit for bit: the embedding's
+    gradient accumulates in a fixed order. (chip_smoke's card-vs-CPU
+    train check counts the int8 codes the two devices round apart, so
+    its CPU side must repeat.)"""
+    _, cfg = _cfgs(arch, compute_dtype="float32")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=64,
+                           global_batch=4)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        runs = []
+        for _ in range(2):
+            state = init_state(torch.Generator().manual_seed(0), cfg,
+                               opt_cfg, compression=True, device="cpu")
+            step = make_train_step(cfg, opt_cfg, compression=True)
+            for i in range(3):
+                state, _ = step(state, _port_batch(data.batch(i)))
+            runs.append([t.detach().clone() for t in tree_leaves(state)])
+    finally:
+        torch.set_num_threads(threads)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def test_grad_accumulation_matches_full_batch():
     _, cfg = _cfgs(compute_dtype="float32")
     opt_cfg = AdamWConfig(grad_clip=1e9)
