@@ -56,6 +56,26 @@ runs these phases, and fails (non-zero exit) if any check fails:
               to the plan over the CPU's, and no more energy than the
               max-performance baseline; the joules are the activity
               model's, not measured;
+   sharding — the distribution layer in an NCCL world of one (untraced):
+              (a) ``qwen3-1.7b`` at full width and depth prefills B=4 ×
+              2048 through the flash kernel under ``axis_rules`` on a
+              1 × 1 mesh (parameters and batch DTensors, the kernel on
+              each rank's local heads; launch counters set to 0 just
+              before and read just after: 28 launches), logits against
+              the unsharded prefill (bitwise expected at world 1), both
+              prefills' ms; (b) ``launch/train.py --mesh 1x1`` at full
+              size (4 steps) against the same run without ``--mesh``
+              (losses and parameters), ms a step of both, and on the
+              smoke config a sharded run's checkpoint restored into the
+              unsharded launcher; (c) granite-moe-1b-a400m's ``moe_ffn``
+              with ``experts`` on the one-rank ``model`` axis against
+              the local dispatch; (d) ``pipeline_forward`` on a one-rank
+              ``pipe`` axis against the sequential layers; (e) the dry
+              run in a subprocess (a fake process group of 256 / 512
+              ranks cannot share a process with NCCL): qwen3-1.7b × the
+              four shapes on 16 × 16, one 2 × 16 × 16 cell, and a
+              one-chip row at ``H100_SXM`` for (a)'s prefill shape,
+              printed beside (a)'s ms; each cell's seconds;
 4. kernel   — every kernel against its plain PyTorch version at the
               shapes its path gives it, at the stated tolerances:
               ``sample_attr`` on uniform ids (equal counts, sums to rtol,
@@ -300,6 +320,312 @@ def launch_counters():
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.sample_attr.ops import sample_attr_fold
     return (sample_attr_fold, flash_attention, rmsnorm)
+
+
+# ---------------------------------------------------------------------------
+# The sharding phase: the distribution layer in an NCCL world of one.
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN_STEPS = 4
+DRYRUN_CELLS = [("qwen3-1.7b", s, False) for s in
+                ("train_4k", "prefill_32k", "decode_32k", "long_500k")] + [
+    ("qwen3-1.7b", "decode_32k", True)]
+# The dry run's subprocess: the cells above priced at the reference's
+# spec, then a one-chip row of the model phase's prefill at H100_SXM.
+_DRYRUN_SCRIPT = """
+import json, sys, time, warnings, logging
+warnings.filterwarnings("ignore"); logging.disable(logging.WARNING)
+from repro_torch.configs.base import SHAPES, ShapeConfig
+from repro_torch.core.hardware import H100_SXM
+from repro_torch.launch.dryrun import fake_world, lower_cell
+from repro_torch.launch.mesh import make_mesh
+cells, (B, S) = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+for arch, shape, mp in cells:
+    t0 = time.perf_counter()
+    row, _ = lower_cell(arch, shape, multi_pod=mp)
+    row["seconds"] = time.perf_counter() - t0
+    print("DRYRUN " + json.dumps(row, default=str), flush=True)
+SHAPES["chip_prefill"] = ShapeConfig("chip_prefill", S, B, "prefill")
+fake_world(1)
+t0 = time.perf_counter()
+row, _ = lower_cell(cells[0][0], "chip_prefill", multi_pod=False,
+                    mesh=make_mesh((1, 1), ("data", "model"), device="meta"),
+                    hw=H100_SXM)
+row["seconds"] = time.perf_counter() - t0
+print("DRYRUN " + json.dumps(row, default=str), flush=True)
+"""
+
+
+def sharding_phase(dev):
+    """The distribution layer on the card, in an NCCL world of one (set up
+    here and torn down at the end). Runs untraced.
+
+    (a) qwen3-1.7b at full width and depth (bf16, random weights from
+        seed 0, B=4 × 2048, the model phase's inputs) prefills through
+        ``attn_impl="flash"`` under ``axis_rules(build_rules(...))`` on a
+        1 × 1 ("data", "model") mesh: parameters and batch are DTensors
+        placed by ``param_specs`` / ``batch_specs``, the flash kernel
+        runs on each rank's local heads (``local_map``). Launch counters
+        set to 0 just before the sharded prefill and read just after: 28
+        flash launches, nothing else. Its logits against the unsharded
+        prefill's: bitwise expected (one rank runs the same kernels on
+        the same tensors); otherwise within ``MODEL_REL_TOL``. Both
+        prefills' ms.
+    (b) ``launch/train.py --arch qwen3-1.7b --mesh 1x1 --steps 4
+        --no-profile`` in process against the same run without
+        ``--mesh``: losses and final parameters equal (bitwise expected;
+        otherwise losses within rel 1e-6 and parameters within the
+        train phase's atol 1e-2·lr); ms a step of both (DTensor's host
+        cost). A checkpoint at full size would write 24 GB, so the
+        restore check runs on the smoke config: a sharded run's
+        checkpoint (whole tensors) restores into the unsharded launcher
+        bit for bit.
+    (c) granite-moe-1b-a400m's ``moe_ffn`` (one layer's experts at full
+        width, B=4 × 2048 bf16 tokens) with ``experts`` on the one-rank
+        ``model`` axis against the local dispatch: bitwise.
+    (d) ``pipeline_forward`` on a one-rank ``pipe`` axis against the
+        sequential layers (L=8, D=16, B=12, M=6): bitwise.
+    (e) the dry run in a subprocess (its fake process group cannot share
+        a process with NCCL), each cell's row and seconds, and a
+        one-chip row at ``H100_SXM`` for (a)'s prefill (its attention
+        priced through the dry run's default ``"chunked"`` path: the
+        flash kernel runs on no meta tensor) beside (a)'s ms.
+    Returns the sharded prefill's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.dryrun import build_rules
+    from repro_torch.launch.mesh import make_mesh, make_small_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MoE
+    from repro_torch.sharding import params as sp
+    from repro_torch.sharding.pipeline import pipeline_forward
+    from repro_torch.sharding.rules import axis_rules, make_rules
+    from repro_torch.tree import tree_leaves
+
+    check(not dist.is_initialized(), "sharding: no process group yet")
+    B, S, T = MODEL_BATCH, MODEL_PROMPT, MODEL_MAX_LEN
+    mesh = make_small_mesh(1, 1, device=dev)
+    log(f"sharding: NCCL world of {dist.get_world_size()}, mesh "
+        f"{mesh.mesh_dim_names} {tuple(mesh.mesh.shape)}")
+
+    # (a) the sharded prefill.
+    cfg = get_config(MODEL_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    p, n_params, _ = _draw(cfg, dev)
+    batch = _model_batch(cfg, B, S, torch.Generator(device=dev).manual_seed(1),
+                         dev)
+    rules = build_rules(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh)
+    for w in rules.warnings:
+        log(f"sharding (a): rules warning: {w}")
+
+    def plain():
+        return M.prefill(p, cfg, batch, T, attn_impl="flash")[0]
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    want, plain_ms = timed(plain)
+    counters = launch_counters()
+    with axis_rules(rules):
+        pd = sp.distribute(p, sp.param_specs(p, rules), rules)
+        bd = sp.distribute(batch, sp.batch_specs(batch, rules), rules)
+
+        def sharded():
+            return M.prefill(pd, cfg, bd, T, attn_impl="flash")[0]
+        sharded()                                           # warm-up
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        got = sharded()
+        torch.cuda.synchronize()
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        launches = {c.__name__: c.launches for c in counters}
+        placements = str(got.placements)
+        got = got.full_tensor()
+        _, sharded_ms2 = timed(sharded)
+    bitwise = torch.equal(got, want)
+    rel = _max_rel(got, want)
+    check(launches == {"sample_attr_fold": 0,
+                       "flash_attention": cfg.n_layers, "rmsnorm": 0},
+          f"sharding (a): launches in the sharded prefill {launches}")
+    check(tuple(got.shape) == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(got).all()), "sharding (a): logits")
+    check(bitwise or rel <= MODEL_REL_TOL,
+          f"sharding (a): sharded vs unsharded logits {rel:.3e}")
+    log(f"sharding (a): {MODEL_ARCH} {n_params} parameters, prefill B={B} "
+        f"S={S} flash under axis_rules on 1x1: logits {placements}, "
+        + ("bitwise equal to the unsharded prefill" if bitwise else
+           f"{rel:.3e} of max |logit| from the unsharded prefill (not "
+           f"bitwise)")
+        + f"; sharded prefill {sharded_ms:.2f} / {sharded_ms2:.2f} ms, "
+        f"unsharded {plain_ms:.2f} ms; launches {launches}")
+    del p, pd, batch, bd, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (b) sharded training against unsharded.
+    import signal
+    prev_sigterm = signal.getsignal(signal.SIGTERM)
+    lr = 3e-4
+    argv = ["--arch", MODEL_ARCH, "--steps", str(SHARD_TRAIN_STEPS),
+            "--no-profile", "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as ckdir:
+        plain_res, _, tp = launcher.main(argv + ["--ckpt-dir", ckdir])
+        want_p = [t.detach() for t in tree_leaves(tp.state["params"])]
+        del tp
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckdir:
+        shard_res, _, ts = launcher.main(argv + ["--ckpt-dir", ckdir,
+                                                 "--mesh", "1x1"])
+        leaves = tree_leaves(ts.state["params"])
+        check(all(hasattr(t, "placements") for t in leaves),
+              "sharding (b): the sharded state is DTensors")
+        diffs = []
+        for t, w in zip(leaves, want_p):
+            diffs.append(float((t.full_tensor().detach() - w).abs().max()))
+        del ts, leaves, want_p
+        torch.cuda.empty_cache()
+    pl = [m["loss"] for m in plain_res["metrics"]]
+    sl = [m["loss"] for m in shard_res["metrics"]]
+    pms = [m["step_time_s"] * 1e3 for m in plain_res["metrics"]]
+    sms = [m["step_time_s"] * 1e3 for m in shard_res["metrics"]]
+    same = pl == sl and max(diffs) == 0.0
+    check(len(sl) == SHARD_TRAIN_STEPS and all(np.isfinite(sl)),
+          f"sharding (b): losses {sl}")
+    check(same or (all(abs(a - b) <= 1e-6 * abs(b) for a, b in zip(sl, pl))
+                   and max(diffs) <= 1e-2 * lr),
+          f"sharding (b): sharded losses {sl} vs {pl}, parameters max "
+          f"|d| {max(diffs):.3e}")
+    with tempfile.TemporaryDirectory() as ckdir:
+        smoke = ["--arch", MODEL_ARCH, "--smoke", "--steps", "10",
+                 "--no-profile", "--ckpt-dir", ckdir]
+        _, _, ts = launcher.main(smoke + ["--mesh", "1x1"])
+        saved = [t.full_tensor().detach() if hasattr(t, "full_tensor")
+                 else t for t in tree_leaves(ts.state)]
+        check(ckpt.latest_step(ckdir) == 10, "sharding (b): the sharded "
+              "smoke run's checkpoint at step 10")
+        del ts
+        _, _, tr = launcher.main(smoke)
+        restored = tree_leaves(tr.state)
+        check(tr.step == 10 and len(restored) == len(saved) and all(
+            torch.equal(a, b) for a, b in zip(restored, saved)),
+            "sharding (b): the sharded checkpoint restores into the "
+            "unsharded launcher bit for bit")
+        del tr, restored, saved
+    log(f"sharding (b): launcher --mesh 1x1, {SHARD_TRAIN_STEPS} steps at "
+        f"full size: losses " + " ".join(f"{x:.6f}" for x in sl)
+        + (" equal to the unsharded run's, parameters bitwise equal"
+           if same else f" vs unsharded " + " ".join(f"{x:.6f}" for x in pl)
+           + f", parameters max |d| {max(diffs):.3e} (not bitwise)")
+        + "; ms a step sharded " + " ".join(f"{x:.1f}" for x in sms)
+        + ", unsharded " + " ".join(f"{x:.1f}" for x in pms)
+        + "; smoke: the sharded checkpoint restored into the unsharded "
+        "launcher bit for bit")
+    signal.signal(signal.SIGTERM, prev_sigterm)
+    torch.cuda.empty_cache()
+
+    # (c) expert parallelism on the one-rank model axis.
+    mcfg = get_config(MOE_ARCH).replace(compute_dtype="bfloat16")
+    g = torch.Generator(device=dev).manual_seed(2)
+    mp_ = MoE.moe_init(g, mcfg)
+    x = torch.randn(B, S, mcfg.d_model, generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    with torch.no_grad():
+        local, _ = MoE.moe_ffn(mp_, mcfg, x)
+        erules = make_rules(mesh)
+        with axis_rules(erules):
+            specs = sp.param_specs({"blocks": [{"moe": mp_}]}, erules)
+            mpd = sp.distribute(mp_, specs["blocks"][0]["moe"], erules)
+            xd = sp.distribute({"x": x}, sp.batch_specs({"x": x}, erules),
+                               erules)["x"]
+            ep, _ = MoE.moe_ffn(mpd, mcfg, xd)
+            ep = ep.full_tensor()
+    ep_bitwise = torch.equal(ep, local)
+    check(ep_bitwise or _max_rel(ep, local) <= 1e-3,
+          f"sharding (c): expert-parallel vs local {_max_rel(ep, local):.3e}")
+    log(f"sharding (c): {MOE_ARCH} moe_ffn ({mcfg.n_experts} experts, top "
+        f"{mcfg.top_k}, B={B} S={S} bf16) with experts on the one-rank "
+        f"model axis: "
+        + ("bitwise equal to the local dispatch" if ep_bitwise else
+           f"{_max_rel(ep, local):.3e} of max |y| from the local dispatch"))
+    del mp_, mpd, x, xd, local, ep
+
+    # (d) the pipeline at world 1.
+    pmesh = make_mesh((1,), ("pipe",), device=dev)
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(0.3 * rng.standard_normal((8, 16, 16),
+                                                   np.float32)).to(dev)
+    xp = torch.from_numpy(rng.standard_normal((12, 16), np.float32)).to(dev)
+
+    def stage(ws, h):
+        for wi in ws:
+            h = torch.tanh(h @ wi)
+        return h
+    piped = pipeline_forward(stage, pmesh, axis="pipe", n_micro=6)(w, xp)
+    check(torch.equal(piped, stage(w, xp)),
+          "sharding (d): pipeline at world 1 vs sequential")
+    log("sharding (d): pipeline_forward on a one-rank pipe axis (L=8 D=16 "
+        "B=12 M=6) bitwise equal to the sequential layers")
+    dist.destroy_process_group()
+
+    # (e) the dry run in a subprocess.
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps(DRYRUN_CELLS),
+         json.dumps([B, S])], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    check(res.returncode == 0, f"sharding (e): dry run failed: "
+          f"{res.stderr[-2000:]}")
+    rows = [json.loads(l[len("DRYRUN "):]) for l in res.stdout.splitlines()
+            if l.startswith("DRYRUN ")]
+    check(len(rows) == len(DRYRUN_CELLS) + 1, f"sharding (e): {len(rows)} "
+          f"rows")
+    for (arch, shape, mp), row in zip(DRYRUN_CELLS, rows):
+        if "skipped" in row:
+            log(f"sharding (e): dry run [SKIP] {arch} x {shape}: "
+                f"{row['skipped']} ({row['seconds']:.2f} s)")
+            continue
+        check(row["flops_per_device"] > 0, f"sharding (e): {arch} {shape}")
+        log(f"sharding (e): dry run [OK] {arch} x {shape} mesh={row['mesh']}"
+            f" in {row['seconds']:.2f} s: flops/device "
+            f"{row['flops_per_device']:.4e}, hbm bytes/device (unfused, "
+            f"upper) {row['hbm_bytes_per_device']:.4e}, collective "
+            f"bytes/device {row['coll_bytes_per_device']:.4e} "
+            f"{row['collective_counts']}, bytes/device "
+            f"{row['bytes_per_device']:.4e}; at the reference's TPU_V5E "
+            f"spec compute {row['t_compute_s'] * 1e3:.2f} ms, memory "
+            f"{row['t_memory_s'] * 1e3:.2f} ms, collective "
+            f"{row['t_collective_s'] * 1e3:.2f} ms ({row['dominant']}); "
+            f"warnings {row['warnings']}")
+    one = rows[-1]
+    bound = max(one["t_compute_s"], one["t_memory_s"]) * 1e3
+    log(f"sharding (e): dry run one-chip row of (a)'s prefill (B={B} "
+        f"S={S}, H100_SXM; attention through the dry run's default "
+        f"\"chunked\" path, whose masked scores count S x S: the flash "
+        f"kernel runs on no meta tensor) in {one['seconds']:.2f} s: flops "
+        f"{one['flops_per_device']:.4e}, hbm bytes (unfused, upper) "
+        f"{one['hbm_bytes_per_device']:.4e}: compute "
+        f"{one['t_compute_s'] * 1e3:.3f} ms, memory "
+        f"{one['t_memory_s'] * 1e3:.3f} ms, bound {bound:.3f} ms beside "
+        f"(a)'s measured {sharded_ms:.2f} ms sharded, {plain_ms:.2f} ms "
+        f"unsharded; dry run subprocess {time.perf_counter() - t0:.2f} s")
+    return dict(launches=launches, prefill_ms=sharded_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -3591,6 +3917,8 @@ def main():
         host_session_phase(dev)
     with phase("energy"):
         energy = energy_phase(dev)
+    with phase("sharding"), watchdog(600, "sharding phase"):
+        sharding = sharding_phase(dev)
     with phase("kernel"):
         kernel_phase(dev)
         flash_row = flash_phase(dev)
@@ -3604,7 +3932,8 @@ def main():
     with phase("combo-fold"):
         combo_fold = combo_fold_phase(combo)
     del tl, combo["chunk"]
-    paths = {"energy_launches": energy["launches"]}  # path -> launches
+    paths = {"energy_launches": energy["launches"],  # path -> launches
+             "sharded_launches": sharding["launches"]}
     with phase(f"model {MODEL_ARCH}"):
         model = model_phase(dev)
         bd = model_breakdown(model)
@@ -3704,7 +4033,8 @@ def main():
                   f"vlm_launches {VLM_ARCH}, audio_launches {AUDIO_ARCH} "
                   f"(forward), hybrid_launches {HYBRID_ARCH} (one per "
                   f"group: the shared block), xlstm_launches {SSM_ARCH} "
-                  f"(no attention)",
+                  f"(no attention), sharded_launches the same prefill "
+                  f"under axis_rules on a 1x1 mesh (sharding phase)",
              **path_launches("flash_attention")),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/rmsnorm.cu",

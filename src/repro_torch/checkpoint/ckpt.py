@@ -70,11 +70,27 @@ _BF16 = "bfloat16"
 
 # -- leaves --------------------------------------------------------------------
 
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (an all-gather over its mesh: every rank
+    takes part); any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _writes(tree) -> bool:
+    """Whether this process writes a checkpoint of ``tree``: a sharded
+    state (DTensor leaves) is written whole by rank 0 of the default
+    process group alone; anything else by every caller."""
+    import torch.distributed as dist
+    sharded = any(hasattr(x, "full_tensor") for x in _flatten(tree)[0])
+    return (not sharded or not dist.is_initialized()
+            or dist.get_rank() == 0)
+
+
 def _host(leaf) -> tuple[np.ndarray, str]:
     """(host array, manifest dtype) of one leaf. A bfloat16 tensor becomes
-    a ``V2`` view of its raw words."""
+    a ``V2`` view of its raw words; a DTensor is written whole."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu").contiguous()
+        t = _full(leaf.detach()).to("cpu").contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.dtype("V2")), _BF16
         arr = t.numpy()
@@ -174,7 +190,8 @@ def _read_leaf(dirpath: str, meta: dict) -> np.ndarray:
 def _like(arr: np.ndarray, example):
     """A restored leaf in the example leaf's kind: a tensor on the
     example's device for a tensor example (bfloat16 from its raw words),
-    else the numpy array as loaded."""
+    placed as the example is for a DTensor example (every rank reads the
+    whole leaf and keeps its shard), else the numpy array as loaded."""
     if not isinstance(example, torch.Tensor):
         return arr
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
@@ -184,6 +201,10 @@ def _like(arr: np.ndarray, example):
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr.copy())
+    if hasattr(example, "device_mesh"):
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t.to(example.device), example.device_mesh,
+                                 example.placements, src_data_rank=None)
     return t.to(example.device)
 
 
@@ -264,12 +285,18 @@ def publish_latest(path: str, step: int) -> None:
 
 
 def save(path: str, step: int, tree: Any) -> str:
-    """Blocking atomic save. Returns the final directory."""
-    leaves, treedef = _flatten(tree)
+    """Blocking atomic save. Returns the final directory. DTensor leaves
+    are written whole (every rank of their mesh must call; rank 0
+    writes)."""
     final = os.path.join(path, f"step_{step:09d}")
-    write_manifest_dir(final, leaves,
-                       meta={"step": step, "treedef": str(treedef)})
-    publish_latest(path, step)
+    writes = _writes(tree)
+    if any(hasattr(x, "full_tensor") for x in _flatten(tree)[0]):
+        tree = _snapshot(tree)                        # gathers DTensors
+    leaves, treedef = _flatten(tree)
+    if writes:
+        write_manifest_dir(final, leaves,
+                           meta={"step": step, "treedef": str(treedef)})
+        publish_latest(path, step)
     return final
 
 
@@ -320,8 +347,8 @@ def _snapshot(tree):
     so bfloat16 survives; everything else becomes a numpy array)."""
     leaves, treedef = _flatten(tree)
     return treedef.unflatten(
-        [x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor)
-         else np.asarray(x) for x in leaves])
+        [_full(x.detach()).to("cpu", copy=True)
+         if isinstance(x, torch.Tensor) else np.asarray(x) for x in leaves])
 
 
 class AsyncCheckpointer:
@@ -340,7 +367,9 @@ class AsyncCheckpointer:
 
     def save_async(self, step: int, tree: Any):
         self.wait()                                   # one in flight
-        host_tree = _snapshot(tree)
+        host_tree = _snapshot(tree)                   # gathers DTensors
+        if not _writes(tree):
+            return
 
         def _write():
             save(self.path, step, host_tree)

@@ -11,21 +11,35 @@ weights are random, drawn on the device from seed 0. ALEA host-mode
 profiling is on by default (the paper's capped-overhead continuous
 profiling), with the step run inside ``regions.opaque()``
 (:func:`repro_torch.train.step.opaque_step`, the counterpart of the
-reference's ``jax.jit``). ``--mesh`` (sharded training) is not ported
-yet (ROADMAP A11).
+reference's ``jax.jit``).
+
+``--mesh DxM`` (or ``PxDxM``) trains sharded: the state becomes DTensors
+placed by ``param_specs(state, rules, fsdp=True)`` and the step runs
+under ``axis_rules(make_rules(mesh))``, as the reference's does. One
+process per rank: ``torchrun --nproc-per-node=N -m
+repro_torch.launch.train --mesh DxM ...`` sets up the process group
+(NCCL on the GPU, gloo with ``--device cpu``), whose world size must be
+D·M; ``--mesh 1x1`` in a plain process sets up a world of one.
+Checkpoints hold whole tensors (rank 0 writes), so a sharded run's
+checkpoint restores into an unsharded run and back.
 """
 
 import argparse
+import contextlib
 import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.convert import resolve_device
 from repro_torch.core import AttributionReport, EnergyProfiler
 from repro_torch.data.pipeline import SyntheticTokens
+from repro_torch.launch.mesh import parse_mesh
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.sharding import params as sp
+from repro_torch.sharding.rules import axis_rules, make_rules
 from repro_torch.train.step import init_state, make_train_step, opaque_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import tree_leaves
@@ -62,40 +76,52 @@ def main(argv=None):
     if cfg.embed_inputs:
         raise SystemExit(f"{args.arch} is encoder-only with a stub frontend;"
                          " use the masked-prediction example instead")
-    if args.mesh:
-        raise NotImplementedError("--mesh: sharded training is not ported "
-                                  "yet (ROADMAP A11)")
-
     dev = resolve_device(args.device)
+    if args.mesh and dist.is_initialized() and dev.type == "cuda":
+        # torchrun's ranks: one card each
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = parse_mesh(args.mesh, device=dev)
+    rules = make_rules(mesh) if mesh else None
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 20, 5))
-    state = init_state(torch.Generator(device=dev).manual_seed(0), cfg,
-                       opt_cfg, compression=args.compression, device=dev)
-    step = opaque_step(make_train_step(cfg, opt_cfg,
-                                       compression=args.compression))
-    n = sum(x.numel() for x in tree_leaves(state["params"]))
-    print(f"arch={cfg.name} params={n/1e6:.1f}M steps={args.steps}")
+    ctx = axis_rules(rules) if rules is not None else contextlib.nullcontext()
+    with ctx:
+        state = init_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                           opt_cfg, compression=args.compression,
+                           device=dev)
+        put = lambda b: {k: torch.from_numpy(v).to(dev)  # noqa: E731
+                         for k, v in b.items()}
+        if rules is not None:
+            state = sp.distribute(state, sp.param_specs(state, rules,
+                                                        fsdp=True), rules)
 
-    data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                           global_batch=args.batch)
-    trainer = Trainer(
-        TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                      ckpt_every=max(args.steps // 4, 10),
-                      log_every=args.log_every),
-        step, state, data,
-        put_batch=lambda b: {k: torch.from_numpy(v).to(dev)
-                             for k, v in b.items()})
-    if trainer.try_resume():
-        print(f"resumed at step {trainer.step}")
+            def put(b, _put=put):
+                b = _put(b)
+                return sp.distribute(b, sp.batch_specs(b, rules), rules)
+        step = opaque_step(make_train_step(cfg, opt_cfg,
+                                           compression=args.compression))
+        n = sum(x.numel() for x in tree_leaves(state["params"]))
+        print(f"arch={cfg.name} params={n/1e6:.1f}M steps={args.steps}")
 
-    sess = None
-    if args.no_profile:
-        result = trainer.run()
-    else:
-        prof = EnergyProfiler(period=5e-3, device=dev)
-        with prof.host_session() as sess:
+        data = SyntheticTokens(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                               global_batch=args.batch)
+        trainer = Trainer(
+            TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                          ckpt_every=max(args.steps // 4, 10),
+                          log_every=args.log_every),
+            step, state, data, put_batch=put)
+        if trainer.try_resume():
+            print(f"resumed at step {trainer.step}")
+
+        sess = None
+        if args.no_profile:
             result = trainer.run()
-        print(AttributionReport(sess.estimates()).table(top=10))
+        else:
+            prof = EnergyProfiler(period=5e-3, device=dev)
+            with prof.host_session() as sess:
+                result = trainer.run()
+            print(AttributionReport(sess.estimates()).table(top=10))
 
     for m in result["metrics"][-5:]:
         print(f"step {m['step']:6d} loss {m['loss']:.4f} "

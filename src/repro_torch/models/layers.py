@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.convert import resolve_device
+from repro_torch.sharding.rules import whole_middle, whole_middle_grad
 
 Params = dict[str, Any]
 
@@ -95,8 +96,12 @@ def norm_init(d: int, kind: str = "rms", device="cuda") -> Params:
 
 def linear(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x @ w with weight cast to activation dtype (a no-op for weights
-    already held in the compute dtype)."""
-    return x @ w.to(x.dtype)
+    already held in the compute dtype). On DTensors the matmul flattens
+    the leading dims both ways, so a middle-dim shard of ``x`` (the
+    sequence, under Megatron SP) is gathered first, and so is one of the
+    output's gradient (:func:`repro_torch.sharding.rules.whole_middle`,
+    :func:`~repro_torch.sharding.rules.whole_middle_grad`)."""
+    return whole_middle_grad(whole_middle(x) @ w.to(x.dtype))
 
 
 # -- MLPs ---------------------------------------------------------------------

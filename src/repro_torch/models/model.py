@@ -42,10 +42,13 @@ from repro_torch.convert import resolve_device
 from repro_torch.core import regions
 from repro_torch.core.regions import region
 from repro_torch.models import transformer as tb
-from repro_torch.models.layers import (Params, dense_init, embed_init, norm,
-                                       norm_init, sinusoidal_positions)
+from repro_torch.models.layers import (Params, dense_init, embed_init,
+                                       linear, norm, norm_init,
+                                       sinusoidal_positions)
 from repro_torch.models.ssm import ssm_cache_init
 from repro_torch.models.xlstm import mlstm_cache_init, slstm_cache_init
+from repro_torch.sharding.rules import (block_of, constrain, psum_whole,
+                                       under_current_rules)
 from repro_torch.tree import tree_leaves
 
 RECURRENT = ("ssm", "hybrid")
@@ -99,7 +102,8 @@ def _remat(fn, cfg: ModelConfig):
         raise ValueError(f"unknown remat {cfg.remat!r} (none, dots, full)")
 
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False,
+        return checkpoint(under_current_rules(fn), *args,
+                          use_reentrant=False,
                           preserve_rng_state=False,
                           context_fn=lambda: _contexts(cfg.remat))
     return wrapped
@@ -207,13 +211,17 @@ def _embed(p: Params, cfg: ModelConfig, batch: dict):
             # F.embedding, not indexing: indexing's backward accumulates
             # in a thread-dependent order on the CPU, so its gradient
             # would not repeat bit for bit.
-            x = torch.nn.functional.embedding(batch["tokens"],
-                                              p["embed"].to(dt))
+            # A sharded table is gathered whole over its vocab rows first
+            # (an FSDP shard there would take DTensor's masked lookup,
+            # whose backward fails).
+            table = constrain(p["embed"].to(dt), None, "embed_shard")
+            x = torch.nn.functional.embedding(batch["tokens"], table)
         if cfg.family == "vlm" and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(dt), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
+    x = constrain(x, "batch", "seq", "embed")
     return x, positions
 
 
@@ -224,17 +232,20 @@ def _units(p: Params, cfg: ModelConfig, positions: torch.Tensor, *,
     the shared block after it (the reference's scan bodies)."""
     if cfg.family in tb.ATTN_FAMILIES:
         def block(h, pl):
+            h = constrain(h, "batch", "seq_act", "embed")   # Megatron SP
             return tb.tblock_forward(pl, cfg, h, positions,
                                      attn_impl=attn_impl, q_chunk=q_chunk)
         return [(pl, functools.partial(block, pl=pl)) for pl in p["blocks"]]
     if cfg.family == "ssm":
         def pair(h, pl):
+            h = constrain(h, "batch", "seq_act", "embed")
             return tb.xlstm_pair_forward(pl, cfg, h, positions,
                                          chunk=ssd_chunk)
         return [(pl, functools.partial(pair, pl=pl)) for pl in p["pairs"]]
     shared = p["shared_attn"]
 
     def group(h, pg):
+        h = constrain(h, "batch", "seq_act", "embed")
         h = tb.zamba_group_forward(pg, cfg, h, chunk=ssd_chunk)
         h = tb.shared_attn_forward(shared, cfg, h, positions,
                                    attn_impl=attn_impl, q_chunk=q_chunk)
@@ -270,9 +281,11 @@ def forward(p: Params, cfg: ModelConfig, batch: dict, *,
     x, positions = _embed(p, cfg, batch)
     x, aux = _backbone(p, cfg, x, positions, attn_impl=attn_impl,
                        ssd_chunk=ssd_chunk, q_chunk=q_chunk)
+    x = constrain(x, "batch", None, "embed")
     x = norm(p["final_norm"], x, kind=cfg.norm_kind, eps=cfg.norm_eps)
     with region("lm_head"):
-        logits = x @ p["lm_head"].to(x.dtype)
+        logits = linear(p["lm_head"], x)
+        logits = constrain(logits, "batch", "seq", "vocab")
     return logits, aux
 
 
@@ -282,10 +295,56 @@ def _lse_minus_label(logits: torch.Tensor, labels: torch.Tensor):
     label's logit is a gather, which equals the reference's one-hot
     ``where``-sum (that sum only adds zeros)."""
     lf = logits.to(torch.float32)
+    lf = constrain(lf, "batch", "seq", "vocab")
     m = lf.max(dim=-1, keepdim=True).values.detach()
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    ll = torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]
-    return lse - ll
+    return constrain(lse - _label_logit(lf, labels), "batch", "seq")
+
+
+def _gather_label(lf: torch.Tensor, labels: torch.Tensor, v0: int):
+    """lf[..., labels - v0] where the label falls in this block of ``lf``'s
+    vocab columns [v0, v0 + V), else 0."""
+    idx = labels.to(torch.int64) - v0
+    inside = (idx >= 0) & (idx < lf.shape[-1])
+    got = torch.gather(lf, -1, idx.clamp(0, lf.shape[-1] - 1)[..., None])
+    return torch.where(inside, got[..., 0], torch.zeros((), dtype=lf.dtype,
+                                                          device=lf.device))
+
+
+def _label_logit(lf: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit, lf [B,S,V] float32 at labels [B,S]. On a
+    vocab-sharded DTensor (the reference's vocab-parallel CE) each rank
+    takes the labels in its block of columns and one all-reduce over the
+    vocab's mesh dims sums them: exactly one rank adds a nonzero value,
+    so the sum is the label's logit bit for bit."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(lf, DTensor):
+        return torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]
+    mesh = lf.device_mesh
+    # labels and the result: lf's batch and sequence shards; whole over
+    # the vocab
+    lab_pl = tuple(pp if pp.is_shard() and pp.dim in (0, 1) else Replicate()
+                   for pp in lf.placements)
+    vocab_dims = [i for i, pp in enumerate(lf.placements)
+                  if pp.is_shard() and pp.dim == 2]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    if tuple(labels.placements) != lab_pl:
+        labels = labels.redistribute(mesh, lab_pl)
+    r, n = block_of(lf, 2)
+    v0 = r * (lf.shape[2] // n)
+    groups = [mesh.get_group(i) for i in vocab_dims]
+
+    def body(lf_l, lab_l):
+        return psum_whole(_gather_label(lf_l, lab_l, v0), groups)
+
+    return local_map(body, out_placements=(lab_pl,),
+                     in_placements=(lf.placements, lab_pl),
+                     device_mesh=mesh)(lf, labels)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -304,7 +363,8 @@ def _ce_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _chunk_ce_sum(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
-    return _ce_sum(x @ w.to(x.dtype), labels)
+    logits = constrain(linear(w, x), "batch", "seq", "vocab")
+    return _ce_sum(logits, labels)
 
 
 def fused_lm_head_ce(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -324,8 +384,8 @@ def fused_lm_head_ce(p: Params, cfg: ModelConfig, x: torch.Tensor,
     for i in range(0, S, seq_chunk):
         xi, li = x[:, i:i + seq_chunk], labels[:, i:i + seq_chunk]
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            part = checkpoint(_chunk_ce_sum, xi, w, li, use_reentrant=False,
-                              preserve_rng_state=False)
+            part = checkpoint(under_current_rules(_chunk_ce_sum), xi, w, li,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
             part = _chunk_ce_sum(xi, w, li)
         total = total + part
@@ -354,8 +414,10 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: dict, *,
         x, positions = _embed(p, cfg, batch)
         x, aux = _backbone(p, cfg, x, positions, attn_impl=attn_impl,
                            ssd_chunk=ssd_chunk, q_chunk=q_chunk)
-        x = norm(p["final_norm"], x[:, n_patch:], kind=cfg.norm_kind,
-                 eps=cfg.norm_eps)
+        if n_patch:
+            x = constrain(x, "batch", None, "embed")[:, n_patch:]
+        x = constrain(x, "batch", "seq_act", "embed")
+        x = norm(p["final_norm"], x, kind=cfg.norm_kind, eps=cfg.norm_eps)
         with region("loss"):
             ce = fused_lm_head_ce(p, cfg, x, labels, seq_chunk=ce_chunk)
         return ce + aux, {"ce": ce, "aux": aux}
@@ -382,6 +444,7 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, max_len: int, *,
     if cfg.family in tb.ATTN_FAMILIES:
         caches = []
         for pl in p["blocks"]:
+            x = constrain(x, "batch", "seq_act", "embed")   # Megatron SP
             x, c = tb.tblock_prefill(pl, cfg, x, positions, max_len,
                                      attn_impl=attn_impl,
                                      cache_dtype=cache_dtype,
@@ -391,12 +454,14 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, max_len: int, *,
     elif cfg.family == "ssm":
         cache = {"pairs": []}
         for pl in p["pairs"]:
+            x = constrain(x, "batch", "seq_act", "embed")
             x, c = tb.xlstm_pair_prefill(pl, cfg, x, positions,
                                          chunk=ssd_chunk)
             cache["pairs"].append(c)
     else:
         cache = {"groups": [], "shared_attn": []}
         for pg in p["groups"]:
+            x = constrain(x, "batch", "seq_act", "embed")
             x, cg = tb.zamba_group_prefill(pg, cfg, x, chunk=ssd_chunk)
             x, ca = tb.shared_attn_prefill(p["shared_attn"], cfg, x,
                                            positions, max_len,
@@ -410,7 +475,8 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, max_len: int, *,
                                                       chunk=ssd_chunk)
     x = norm(p["final_norm"], x, kind=cfg.norm_kind, eps=cfg.norm_eps)
     with region("lm_head"):
-        logits = x[:, -1:, :] @ p["lm_head"].to(x.dtype)
+        logits = linear(p["lm_head"], x[:, -1:, :])
+        logits = constrain(logits, "batch", None, "vocab")
     return logits, cache, torch.tensor(S, dtype=torch.int32,
                                        device=x.device)
 
@@ -509,6 +575,7 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     dt = _compute_dtype(cfg)
     with region("embed"):
         x = p["embed"].to(dt)[tokens]
+    x = constrain(x, "batch", None, "embed")
     if cfg.family in tb.ATTN_FAMILIES:
         for pl, cl in zip(p["blocks"], cache["blocks"]):
             x, _ = tb.tblock_decode(pl, cfg, x, cl, cur_len, window=window,
@@ -530,7 +597,8 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                          write_mask=write_mask)
     x = norm(p["final_norm"], x, kind=cfg.norm_kind, eps=cfg.norm_eps)
     with region("lm_head"):
-        logits = x @ p["lm_head"].to(x.dtype)
+        logits = linear(p["lm_head"], x)
+        logits = constrain(logits, "batch", None, "vocab")
     return logits, cache
 
 

@@ -30,8 +30,16 @@ Two points where PyTorch differs from XLA shape the code:
   and the combine are :class:`_RowGather` calls, whose backward is
   the same gather the other way round.
 
-The expert-parallel branch of the reference (``shard_map`` over the
-``experts`` mesh axis) is not ported: sharding is ROADMAP A11.
+Expert parallelism (the reference's ``shard_map`` branch) runs whenever
+the rules in force (:func:`repro_torch.sharding.rules.axis_rules`) map
+``experts`` to a mesh axis: each rank keeps its DP shard of the tokens
+(whole over the expert axis) and its block of ``E / n`` experts, runs the
+capacity gather over those experts alone (capacity from the per-DP-shard
+token count; dropless means capacity = that count), and one all-reduce
+over the expert axis sums the ranks' partial outputs. That all-reduce is
+:func:`repro_torch.sharding.rules.psum_whole`, whose backward passes
+the (already whole) gradient through, so training works; the combine stays free of float
+atomics.
 """
 
 from __future__ import annotations
@@ -42,6 +50,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.regions import region
 from repro_torch.models.layers import Params, dense_init
+from repro_torch.sharding.rules import (P, current_rules, mesh_shape,
+                                       placements, psum_whole, whole_middle,
+                                       whole_middle_grad)
 
 __all__ = ["moe_init", "moe_ffn", "router"]
 
@@ -133,15 +144,24 @@ def _gather_sum(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return rows.sum(1)
 
 
-def _dispatch_local(up, gate, down, x, top_p, top_i, *, capacity: int):
-    """Capacity-gather dispatch over all E experts.
+def _dispatch_local(up, gate, down, x, top_p, top_i, *, e0: int = 0,
+                    n_local: int | None = None, n_total: int | None = None,
+                    capacity: int):
+    """Capacity-gather dispatch over experts ``[e0, e0 + n_local)`` of
+    ``n_total`` (all of them by default); ``up``/``gate``/``down`` hold
+    those ``n_local`` experts.
 
-    x: [T,d]; top_p/top_i: [T,k]. Each expert takes its ``capacity``
-    (clipped to T) highest-scoring tokens; a routed token that misses its
-    expert's capacity is dropped there. Returns y [T,d]."""
+    x: [T,d]; top_p/top_i: [T,k] (global expert ids). Each expert takes
+    its ``capacity`` (clipped to T) highest-scoring tokens; a routed token
+    that misses its expert's capacity is dropped there, and a token's
+    experts outside the block add nothing here. Returns y [T,d]."""
     T = x.shape[0]
     E = up.shape[0]
-    experts = torch.arange(E, device=x.device)
+    if n_local is not None and n_local != E:
+        raise ValueError(f"_dispatch_local: {E} expert weights for a block "
+                         f"of {n_local}")
+    del n_total
+    experts = torch.arange(e0, e0 + E, device=x.device)
     match = top_i[None, :, :] == experts[:, None, None]          # [E, T, k]
     score = torch.where(match, top_p[None, :, :],
                         torch.zeros((), dtype=top_p.dtype,
@@ -151,13 +171,17 @@ def _dispatch_local(up, gate, down, x, top_p, top_i, *, capacity: int):
     with torch.no_grad():
         # slot[e, t]: token t's row in expert e's slab, or E·cap.
         none = E * cap
-        rows = (experts[:, None] * cap
+        rows = (torch.arange(E, device=x.device)[:, None] * cap
                 + torch.arange(cap, device=x.device)[None, :])
         slot = torch.full((E, T), none, dtype=torch.int64, device=x.device)
         slot.scatter_(1, tok_idx, rows)
         # Each token's rows in its k experts' slabs, in the order of its
-        # top-k; its slab rows elsewhere are zero-weight filler picks.
-        tok_rows = torch.gather(slot, 0, top_i.T.to(torch.int64)).T  # [T, k]
+        # top-k (``none`` for an expert outside the block); its slab rows
+        # elsewhere are zero-weight filler picks.
+        li = top_i.T.to(torch.int64) - e0                           # [k, T]
+        inside = (li >= 0) & (li < E)
+        tok_rows = torch.where(
+            inside, torch.gather(slot, 0, li.clamp(0, E - 1)), none).T
         # Each slab row's token, or T for a filler row.
         real = torch.zeros(none + 1, dtype=torch.bool, device=x.device)
         real[tok_rows.reshape(-1)] = True
@@ -172,8 +196,68 @@ def _dispatch_local(up, gate, down, x, top_p, top_i, *, capacity: int):
     return _RowGather.apply(y_slab.reshape(E * cap, -1), tok_rows, row_tok)
 
 
+def _moe_ffn_ep(p: Params, cfg: ModelConfig, x2: torch.Tensor, top_p,
+                top_i, rules, expert_axis: str, *, dropless: bool):
+    """Expert-parallel dispatch (the reference's ``shard_map`` branch):
+    tokens sharded over the DP axes and whole over ``expert_axis``, the
+    expert stacks split over ``expert_axis``; one all-reduce sums the
+    ranks' outputs."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    E = cfg.n_experts
+    shape = mesh_shape(rules.mesh)
+    mesh = rules.dmesh
+    n_shards = shape[expert_axis]
+    if E % n_shards:
+        raise ValueError(f"moe_ffn: {E} experts over {n_shards} shards")
+    n_local = E // n_shards
+    batch_axes = rules.mapping.get("batch")
+    dp_axes = (() if batch_axes is None else
+               (batch_axes,) if isinstance(batch_axes, str)
+               else tuple(batch_axes))
+    dp = 1
+    for a in dp_axes:
+        dp *= shape[a]
+    # Per-DP-shard token count sets capacity (tokens are sharded over DP
+    # axes and whole over the expert axis inside the block).
+    t_local = max(x2.shape[0] // dp, 1)
+    cap = t_local if dropless else max(
+        int(cfg.capacity_factor * t_local * cfg.top_k / E), 1)
+
+    names = tuple(mesh.mesh_dim_names)
+    tok_pl = placements(P(batch_axes, None), mesh)
+    tok_grad = tuple(Partial() if n == expert_axis else pl
+                     for n, pl in zip(names, tok_pl))
+    w_pl = placements(P(expert_axis, None, None), mesh)
+    # each DP shard's tokens give a part of the experts' gradient
+    w_grad = tuple(Partial() if t.is_shard() else pl
+                   for t, pl in zip(tok_pl, w_pl))
+
+    def local(t, pl, grad_pl=None):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * len(names),
+                                   run_check=False)
+        if tuple(t.placements) != pl:
+            t = t.redistribute(mesh, pl)
+        return t.to_local(grad_placements=grad_pl)
+
+    xl = local(x2, tok_pl, tok_grad)
+    pl_ = local(top_p, tok_pl, tok_grad)
+    il = local(top_i, tok_pl)
+    up, gate, down = (local(p[k], w_pl, w_grad)
+                      for k in ("up", "gate", "down"))
+    e0 = mesh.get_coordinate()[names.index(expert_axis)] * n_local
+    y = _dispatch_local(up, gate, down, xl, pl_.to(xl.dtype), il, e0=e0,
+                        n_local=n_local, n_total=E, capacity=cap)
+    y = psum_whole(y, [mesh.get_group(expert_axis)])
+    y = DTensor.from_local(y, mesh, tok_pl, run_check=False,
+                           shape=x2.shape, stride=x2.stride())
+    # plain tokens in, plain tokens out
+    return y if isinstance(x2, DTensor) else y.full_tensor()
+
+
 def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-            dropless: bool = False, expert_axis: str | None = None):
+            dropless: bool = False):
     """MoE FFN over x: [B,S,d] (or [T,d]). Returns (y, aux_loss).
 
     ``dropless=True`` guarantees no token is ever dropped. Decode paths
@@ -181,17 +265,22 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     slot, which would make each slot's output depend on which other
     requests share the batch; dropless dispatch keeps every row's
     computation row-local, so continuous batching is token-exact against
-    single-request decoding. ``expert_axis`` names the mesh axis of the
-    reference's expert-parallel dispatch, which is not ported."""
-    if expert_axis is not None:
-        raise NotImplementedError(
-            f"moe_ffn: expert-parallel dispatch over {expert_axis!r} is "
-            f"not ported yet (ROADMAP A11); the port runs every expert on "
-            f"one card")
+    single-request decoding. Local (unsharded) dropless routes through
+    :func:`_dispatch_dense` (T·k expert-rows); the expert-parallel path
+    (the rules in force map ``experts`` to a mesh axis) keeps the
+    capacity gather with capacity = local token count (a dense gather
+    would need other shards' expert weights)."""
     orig_shape = x.shape
-    x2 = x.reshape(-1, orig_shape[-1])
+    x2 = whole_middle(x).reshape(-1, orig_shape[-1])
     with region("moe_router"):
         top_p, top_i, aux = router(p, cfg, x2)
+    rules = current_rules()
+    expert_axis = None if rules is None else rules.mapping.get("experts")
+    if expert_axis is not None and rules.mesh is not None:
+        with region("moe_ffn"):
+            y = _moe_ffn_ep(p, cfg, x2, top_p, top_i, rules, expert_axis,
+                            dropless=dropless)
+        return whole_middle_grad(y.reshape(orig_shape)), aux
     if dropless:
         with region("moe_ffn"):
             y = _dispatch_dense(p["up"], p["gate"], p["down"], x2, top_p,

@@ -17,6 +17,7 @@ tails a prefill returns are in the compute dtype, and the zero cache of
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,7 +26,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import resolve_device
 from repro_torch.core.regions import region
-from repro_torch.models.layers import Params, dense_init, rmsnorm
+from repro_torch.models.layers import Params, dense_init, linear, rmsnorm
+from repro_torch.sharding.rules import blockwise, constrain
 
 __all__ = ["ssm_init", "ssm_forward", "ssm_decode", "ssm_cache_init"]
 
@@ -69,7 +71,14 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  state: torch.Tensor | None = None):
     """Depthwise causal conv. x: [B,S,C], w: [K,C]. state: [B,K-1,C] tail
     of the previous tokens (decode). Returns (silu(y) [B,S,C], new tail
-    [B,K-1,C]); the K taps are summed in order, in x's dtype."""
+    [B,K-1,C]); the K taps are summed in order, in x's dtype. On
+    DTensors per block of rows and channels (the sequence whole)."""
+    return blockwise(_causal_conv_local, x, (0, 2),
+                     [(x, (0, 2)), (w, (None, 1)), (state, (0, 2))],
+                     [(0, 2), (0, 2)])
+
+
+def _causal_conv_local(x, w, state):
     K = w.shape[0]
     if state is None:
         pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
@@ -88,13 +97,14 @@ def _ssd_inputs(p: Params, cfg: ModelConfig, u: torch.Tensor,
     """Project u [B,S,d] → (x [B,S,H,hd], Bmat/Cmat [B,S,N], dt [B,S,H]
     float32, z [B,S,d_in], conv tails)."""
     d_in, H, hd, N = _dims(cfg)
-    z = u @ p["in_z"].to(u.dtype)
-    x = u @ p["in_x"].to(u.dtype)
-    bc = u @ p["in_bc"].to(u.dtype)
+    z = linear(p["in_z"], u)
+    x = linear(p["in_x"], u)
+    bc = linear(p["in_bc"], u)
+    x = constrain(x, "batch", "seq", "conv_dim")
     x, cxs = _causal_conv(x, p["conv_x"], conv_x_state)
     bc, cbs = _causal_conv(bc, p["conv_bc"], conv_bc_state)
     Bmat, Cmat = bc[..., :N], bc[..., N:]
-    dt = F.softplus((u @ p["in_dt"].to(u.dtype)).to(F32) + p["dt_bias"])
+    dt = F.softplus(linear(p["in_dt"], u).to(F32) + p["dt_bias"])
     x = x.reshape(*x.shape[:2], H, hd)
     return x, Bmat, Cmat, dt, z, cxs, cbs
 
@@ -171,12 +181,16 @@ def ssm_forward(p: Params, cfg: ModelConfig, u: torch.Tensor, *,
         x, Bmat, Cmat, dt, z, cxs, cbs = _ssd_inputs(p, cfg, u)
     A = -torch.exp(p["A_log"])
     with region("ssm_scan"):
-        y, h_final = _ssd_chunked(x, Bmat, Cmat, dt, A,
-                                  chunk=min(chunk, u.shape[1]))
+        # per block of rows and heads on DTensors
+        y, h_final = blockwise(
+            functools.partial(_ssd_chunked, chunk=min(chunk, u.shape[1])),
+            x, (0, 2), [(x, (0, 2)), (Bmat, (0, None)), (Cmat, (0, None)),
+                        (dt, (0, 2)), (A, (None, 0))], [(0, 2), (0, 1)])
         y = y + p["D"][None, None, :, None] * x.to(F32)
     y = _ssm_out(p, cfg, y, z, u)
     with region("ssm_out"):
-        out = y @ p["out"].to(u.dtype)
+        out = linear(p["out"], y)
+    out = constrain(out, "batch", "seq", "embed")
     if return_cache:
         # The tails are slices of the padded input: copy them out so the
         # cache does not hold the whole sequence.
@@ -200,6 +214,15 @@ def ssm_cache_init(cfg: ModelConfig, batch: int, dtype=F32,
     }
 
 
+def _ssm_decode_core(h, xq, Bq, Cq, dtq, A, D):
+    """The single-token state update and read-out (float32)."""
+    decay = torch.exp(dtq * A)                              # [B,H]
+    h = h * decay[:, :, None, None] + torch.einsum(
+        "bh,bn,bhp->bhpn", dtq, Bq, xq)
+    y = torch.einsum("bn,bhpn->bhp", Cq, h) + D[None, :, None] * xq
+    return y, h
+
+
 def ssm_decode(p: Params, cfg: ModelConfig, u: torch.Tensor, cache: Params):
     """Single-token recurrent update. u: [B,1,d]. Returns (y, new state):
     the new state is a dict of fresh tensors; ``cache`` is only read."""
@@ -211,9 +234,10 @@ def ssm_decode(p: Params, cfg: ModelConfig, u: torch.Tensor, cache: Params):
     Cq = Cmat[:, 0].to(F32)
     dtq = dt[:, 0]                                          # [B,H]
     with region("ssm_decode"):
-        decay = torch.exp(dtq * A)                          # [B,H]
-        h = cache["h"] * decay[:, :, None, None] + torch.einsum(
-            "bh,bn,bhp->bhpn", dtq, Bq, xq)
-        y = torch.einsum("bn,bhpn->bhp", Cq, h) + p["D"][None, :, None] * xq
-    out = _ssm_out(p, cfg, y, z, u) @ p["out"].to(u.dtype)
+        y, h = blockwise(
+            _ssm_decode_core, xq, (0, 1),
+            [(cache["h"], (0, 1)), (xq, (0, 1)), (Bq, (0, None)),
+             (Cq, (0, None)), (dtq, (0, 1)), (A, (None, 0)),
+             (p["D"], (None, 0))], [(0, 1), (0, 1)])
+    out = linear(p["out"], _ssm_out(p, cfg, y, z, u))
     return out, {"h": h, "conv_x": cxs, "conv_bc": cbs}

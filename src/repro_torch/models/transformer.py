@@ -59,6 +59,9 @@ def _commit(cache: Params, new: Params, write_mask) -> Params:
             _commit(t, new[k], write_mask)
             continue
         n = new[k].to(t.dtype)
+        if hasattr(t, "placements") and tuple(n.placements) != tuple(
+                t.placements):
+            n = n.redistribute(t.device_mesh, t.placements)
         if write_mask is not None:
             wm = write_mask.to(device=t.device, dtype=torch.bool)
             n = torch.where(wm.view(-1, *[1] * (t.ndim - 1)), n, t)

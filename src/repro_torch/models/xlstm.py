@@ -14,13 +14,16 @@ norm is :func:`layers.rmsnorm`, as the reference's is.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import resolve_device
 from repro_torch.core.regions import region
-from repro_torch.models.layers import Params, dense_init, rmsnorm
+from repro_torch.models.layers import Params, dense_init, linear, rmsnorm
+from repro_torch.sharding.rules import blockwise, constrain
 
 __all__ = ["mlstm_init", "mlstm_forward", "mlstm_decode", "mlstm_cache_init",
            "slstm_init", "slstm_forward", "slstm_decode", "slstm_cache_init"]
@@ -55,9 +58,12 @@ def _mlstm_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor):
     H, hd = cfg.n_heads, cfg.head_dim
 
     def heads(w):
-        return (x @ w.to(x.dtype)).reshape(B, S, H, hd).transpose(1, 2)
+        return linear(w, x).reshape(B, S, H, hd).transpose(1, 2)
     q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
-    gif = (x @ p["wif"].to(x.dtype)).to(F32)
+    q = constrain(q, "batch", "heads", "seq", "head_dim")
+    k = constrain(k, "batch", "heads", "seq", "head_dim")
+    v = constrain(v, "batch", "heads", "seq", "head_dim")
+    gif = linear(p["wif"], x).to(F32)
     gi = gif[..., :H].transpose(1, 2)                       # [B,H,S]
     gf = gif[..., H:].transpose(1, 2) + p["f_bias"][None, :, None]
     return q, k, v, gi, gf
@@ -105,9 +111,9 @@ def _mlstm_chunk_body(carry, inp, *, scale):
 def _mlstm_out(p: Params, cfg: ModelConfig, x: torch.Tensor,
                y: torch.Tensor) -> torch.Tensor:
     """Norm, output gate and projection: y [B,S,H·hd] float32 → [B,S,d]."""
-    og = torch.sigmoid(x @ p["ogate"].to(x.dtype))
+    og = torch.sigmoid(linear(p["ogate"], x))
     y = rmsnorm(p["norm"], y.to(x.dtype), eps=cfg.norm_eps) * og
-    return y @ p["wo"].to(x.dtype)
+    return linear(p["wo"], y)
 
 
 def mlstm_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
@@ -117,26 +123,39 @@ def mlstm_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v, gi, gf = _mlstm_qkv(p, cfg, x)
-    lf = F.logsigmoid(gf)
     Q = min(chunk, S)
     assert S % Q == 0
-    carry = (torch.zeros((B, H, hd, hd), dtype=F32, device=x.device),
-             torch.zeros((B, H, hd), dtype=F32, device=x.device),
-             torch.zeros((B, H), dtype=F32, device=x.device))
-    ys = []
     with region("mlstm_scan"):
-        for i in range(0, S, Q):
-            sl = slice(i, i + Q)
-            carry, yi = _mlstm_chunk_body(
-                carry, (q[:, :, sl], k[:, :, sl], v[:, :, sl], gi[..., sl],
-                        lf[..., sl]), scale=hd ** -0.5)
-            ys.append(yi)
-    y = torch.cat(ys, dim=2).transpose(1, 2).reshape(B, S, H * hd)
-    out = _mlstm_out(p, cfg, x, y)
+        # per block of rows and heads on DTensors
+        y, Cf, nf, mf = blockwise(
+            functools.partial(_mlstm_scan, Q=Q, scale=hd ** -0.5), q, (0, 1),
+            [(q, (0, 1)), (k, (0, 1)), (v, (0, 1)), (gi, (0, 1)),
+             (gf, (0, 1))], [(0, 1)] * 4)
+        carry = (Cf, nf, mf)
+    y = y.transpose(1, 2).reshape(B, S, H * hd)
+    out = constrain(_mlstm_out(p, cfg, x, y), "batch", "seq", "embed")
     if return_cache:
         Cf, nf, mf = carry
         return out, {"C": Cf, "n": nf, "m": mf}
     return out
+
+
+def _mlstm_scan(q, k, v, gi, gf, *, Q: int, scale: float):
+    """The chunk loop over q/k/v [B,H,S,hd], gi/gf [B,H,S] → (y
+    [B,H,S,hd] float32, C̃, ñ, m)."""
+    B, H, S, hd = q.shape
+    lf = F.logsigmoid(gf)
+    carry = (torch.zeros((B, H, hd, hd), dtype=F32, device=q.device),
+             torch.zeros((B, H, hd), dtype=F32, device=q.device),
+             torch.zeros((B, H), dtype=F32, device=q.device))
+    ys = []
+    for i in range(0, S, Q):
+        sl = slice(i, i + Q)
+        carry, yi = _mlstm_chunk_body(
+            carry, (q[:, :, sl], k[:, :, sl], v[:, :, sl], gi[..., sl],
+                    lf[..., sl]), scale=scale)
+        ys.append(yi)
+    return (torch.cat(ys, dim=2),) + tuple(carry)
 
 
 def mlstm_cache_init(cfg: ModelConfig, batch: int, device="cuda") -> Params:
@@ -153,23 +172,34 @@ def mlstm_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache):
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim
     q, k, v, gi, gf = _mlstm_qkv(p, cfg, x)
+    with region("mlstm_decode"):
+        y, C, n, m_new = blockwise(
+            functools.partial(_mlstm_step, scale=hd ** -0.5), q, (0, 1),
+            [(q, (0, 1)), (k, (0, 1)), (v, (0, 1)), (gi, (0, 1)),
+             (gf, (0, 1)), (cache["C"], (0, 1)), (cache["n"], (0, 1)),
+             (cache["m"], (0, 1))], [(0, 1)] * 4)
+        y = y.reshape(B, 1, H * hd)
+    return _mlstm_out(p, cfg, x, y), {"C": C, "n": n, "m": m_new}
+
+
+def _mlstm_step(q, k, v, gi, gf, C, n, m, *, scale: float):
+    """One recurrent step from q/k/v [B,H,1,hd], gi/gf [B,H,1] and the
+    state → (y [B,H,hd], C, n, m)."""
     lf = F.logsigmoid(gf)[..., 0]                           # [B,H]
     gi = gi[..., 0]
-    qs = q[:, :, 0].to(F32) * hd ** -0.5
+    qs = q[:, :, 0].to(F32) * scale
     ks = k[:, :, 0].to(F32)
     vs = v[:, :, 0].to(F32)
-    with region("mlstm_decode"):
-        m_new = torch.maximum(lf + cache["m"], gi)
-        f_ = torch.exp(lf + cache["m"] - m_new)
-        i_ = torch.exp(gi - m_new)
-        C = f_[..., None, None] * cache["C"] + i_[..., None, None] * (
-            ks[..., :, None] * vs[..., None, :])
-        n = f_[..., None] * cache["n"] + i_[..., None] * ks
-        num = torch.einsum("bhd,bhdv->bhv", qs, C)
-        den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qs, n)),
-                            torch.exp(-m_new))
-        y = (num / den[..., None]).reshape(B, 1, H * hd)
-    return _mlstm_out(p, cfg, x, y), {"C": C, "n": n, "m": m_new}
+    m_new = torch.maximum(lf + m, gi)
+    f_ = torch.exp(lf + m - m_new)
+    i_ = torch.exp(gi - m_new)
+    C = f_[..., None, None] * C + i_[..., None, None] * (
+        ks[..., :, None] * vs[..., None, :])
+    n = f_[..., None] * n + i_[..., None] * ks
+    num = torch.einsum("bhd,bhdv->bhv", qs, C)
+    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qs, n)),
+                        torch.exp(-m_new))
+    return num / den[..., None], C, n, m_new
 
 
 # ---------------------------------------------------------------------------
@@ -222,26 +252,44 @@ def slstm_forward(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     """Strictly-recurrent sLSTM over the sequence. x: [B,S,d]; with
     ``return_cache`` also the final state {"c", "n", "h", "m"}."""
     B, S, d = x.shape
-    xw = (x @ p["w"].to(x.dtype)).to(F32)                   # [B,S,4d]
-    carry = tuple(torch.zeros((B, d), dtype=F32, device=x.device)
-                  for _ in range(4))
-    hs = []
+    xw = linear(p["w"], x).to(F32)                          # [B,S,4d]
     with region("slstm_scan"):
-        for t in range(S):
-            carry = _slstm_step(p, cfg, carry, xw[:, t])
-            hs.append(carry[2])
-    y = torch.stack(hs, dim=1).to(x.dtype)                  # [B,S,d]
-    out = y @ p["wo"].to(x.dtype)
+        # per block of rows on DTensors
+        y, *carry = blockwise(
+            functools.partial(_slstm_scan, cfg=cfg), xw, (0, None),
+            [(xw, (0, None)), (p["r"], (None, None)),
+             (p["b"], (None, None))], [(0, None)] * 5)
+    y = y.to(x.dtype)                                       # [B,S,d]
+    out = constrain(linear(p["wo"], y), "batch", "seq", "embed")
     if return_cache:
         return out, dict(zip(("c", "n", "h", "m"), carry))
     return out
 
 
+def _slstm_scan(xw, r, b, *, cfg: ModelConfig):
+    """The recurrence over xw [B,S,4d] → (h [B,S,d], c, n, h, m)."""
+    B, S = xw.shape[:2]
+    d = xw.shape[-1] // 4
+    carry = tuple(torch.zeros((B, d), dtype=F32, device=xw.device)
+                  for _ in range(4))
+    hs = []
+    for t in range(S):
+        carry = _slstm_step({"r": r, "b": b}, cfg, carry, xw[:, t])
+        hs.append(carry[2])
+    return (torch.stack(hs, dim=1),) + tuple(carry)
+
+
 def slstm_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache):
     """Single-token sLSTM. x: [B,1,d]. Returns (y, new state); ``cache``
     is only read."""
-    xw = (x @ p["w"].to(x.dtype))[:, 0].to(F32)
-    carry = _slstm_step(p, cfg, tuple(cache[k] for k in ("c", "n", "h", "m")),
-                        xw)
-    y = carry[2][:, None, :].to(x.dtype) @ p["wo"].to(x.dtype)
+    xw = linear(p["w"], x)[:, 0].to(F32)
+
+    def step(xw, r, b, *state):
+        return _slstm_step({"r": r, "b": b}, cfg, state, xw)
+    carry = blockwise(step, xw, (0, None),
+                      [(xw, (0, None)), (p["r"], (None, None)),
+                       (p["b"], (None, None))]
+                      + [(cache[k], (0, None)) for k in ("c", "n", "h", "m")],
+                      [(0, None)] * 4)
+    y = linear(p["wo"], carry[2][:, None, :].to(x.dtype))
     return y, dict(zip(("c", "n", "h", "m"), carry))

@@ -78,7 +78,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     def grad_fn(params, leaves, batch):
         l, metrics = loss(params, batch)
         grads = torch.autograd.grad(l, leaves)
-        return l.detach(), metrics, list(grads)
+        # A sharded parameter's gradient comes back as DTensor leaves it
+        # (often a partial sum): place it as its parameter is, for the
+        # in-place optimizer.
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if hasattr(g, "placements")
+                 and tuple(g.placements) != tuple(p.placements) else g
+                 for g, p in zip(grads, leaves)]
+        return l.detach(), metrics, grads
 
     def compute_grads(params, batch):
         # A restored state's tensors come back without requires_grad.
@@ -122,10 +129,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                 opt_cfg, state["params"], grads, state["opt"])
         new_state["params"] = params
         new_state["opt"] = opt
-        metrics = dict(metrics, loss=l, **opt_metrics)
+        metrics = {k: _whole(v)
+                   for k, v in dict(metrics, loss=l, **opt_metrics).items()}
         return new_state, metrics
 
     return train_step
+
+
+def _whole(t):
+    """A metric as a plain tensor (a DTensor's full value)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def opaque_step(train_step):

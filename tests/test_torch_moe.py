@@ -16,7 +16,8 @@
   the reference's; no float scatter in forward or backward adds two
   values into one element (the combine is a gather both ways); two
   backward passes are bitwise equal.
-* The expert-parallel branch raises, naming ROADMAP A11.
+* The expert-parallel branch (the rules map ``experts``) on a gloo
+  world of one equals the local dispatch, forward and gradient.
 
 Tolerances: float32 atol 2e-4 / rtol 1e-3 (``tests/test_kernels.py:115``,
 the reference's model-level limit; ``tests/test_torch_models.py``'s
@@ -245,11 +246,43 @@ def test_moe_ffn_gradient_matches_reference_without_float_atomics(arch):
 
 
 def test_expert_parallel_branch_raises():
+    """The expert-parallel branch (rules mapping ``experts``) on a gloo
+    world of one equals the local dispatch, forward and gradient; a
+    mesh that does not fit the world raises (the branch itself no longer
+    does: it is ported, see ``tests/test_torch_sharding.py`` for four
+    ranks)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_small_mesh
+    from repro_torch.sharding.rules import axis_rules, make_rules
+
     _, pcfg = _cfgs("qwen3-moe-30b-a3b")
+    pcfg = pcfg.replace(capacity_factor=float(pcfg.n_experts / pcfg.top_k))
     _, pp = _params(_cfgs("qwen3-moe-30b-a3b")[0])
-    with pytest.raises(NotImplementedError, match="A11"):
-        PMoE.moe_ffn(pp, pcfg, torch.zeros(1, 4, pcfg.d_model),
-                     expert_axis="model")
+    x = np.random.default_rng(5).standard_normal(
+        (2, 8, pcfg.d_model)).astype(np.float32)
+
+    def run():
+        p = {k: v.detach().clone().requires_grad_() for k, v in pp.items()}
+        xt = torch.from_numpy(x).requires_grad_()
+        y, aux = PMoE.moe_ffn(p, pcfg, xt)
+        (y.square().sum() + aux).backward()
+        return [y.detach(), xt.grad] + [p[k].grad for k in sorted(p)]
+    want = run()
+    had = dist.is_initialized()
+    try:
+        mesh = make_small_mesh(device="cpu")
+        with pytest.raises(ValueError, match="world of 1"):
+            make_small_mesh(1, 2, device="cpu")
+        rules = make_rules(mesh)
+        assert rules.mapping["experts"] == "model"
+        with axis_rules(rules):
+            got = run()
+    finally:
+        if not had and dist.is_initialized():
+            dist.destroy_process_group()
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_moe_init_draws_the_reference_shapes():

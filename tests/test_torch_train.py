@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs import registry as r_registry
 from repro.core import regions as r_regions
@@ -551,14 +552,51 @@ def test_launcher_on_the_cpu(tmp_path, capsys, profile):
 
 
 def test_launcher_asks_for_the_gpu(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           "--mesh", "2x2", "--ckpt-dir", str(tmp_path)])
+    # --mesh is ported; a mesh larger than the world raises (no fallback)
+    had = dist.is_initialized()
+    try:
+        with pytest.raises(ValueError, match="world of 1"):
+            launch_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                               "--mesh", "2x2", "--ckpt-dir",
+                               str(tmp_path)])
+    finally:
+        if not had and dist.is_initialized():
+            dist.destroy_process_group()
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: the default device is usable")
     with pytest.raises(RuntimeError, match="no GPU"):
         launch_train.main(["--arch", ARCH, "--smoke",
                            "--ckpt-dir", str(tmp_path)])
+
+
+def test_launcher_mesh_1x1_trains_as_unsharded(tmp_path, capsys):
+    """``--mesh 1x1`` (a world of one): the state is DTensors, the step
+    runs under the rules; its losses and final parameters equal the run
+    without ``--mesh``, and its checkpoint (whole tensors) restores into
+    the unsharded launcher, which then resumes at the last step."""
+    argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "10",
+            "--no-profile", "--log-every", "1"]
+    plain, _, tp = launch_train.main(argv + ["--ckpt-dir",
+                                             str(tmp_path / "a")])
+    had = dist.is_initialized()
+    try:
+        sharded, _, ts = launch_train.main(
+            argv + ["--mesh", "1x1", "--ckpt-dir", str(tmp_path / "b")])
+        got = [t.full_tensor().detach()
+               for t in tree_leaves(ts.state["params"])]
+    finally:
+        if not had and dist.is_initialized():
+            dist.destroy_process_group()
+    assert [m["loss"] for m in sharded["metrics"]] == [
+        m["loss"] for m in plain["metrics"]]
+    want = tree_leaves(tp.state["params"])
+    assert max(float((a - b).abs().max()) for a, b in zip(got, want)) < 1e-6
+    capsys.readouterr()
+    again, _, tr = launch_train.main(argv + ["--ckpt-dir",
+                                             str(tmp_path / "b")])
+    assert "resumed at step" in capsys.readouterr().out
+    for a, b in zip(tree_leaves(tr.state["params"]), got):
+        assert torch.equal(a, b)
 
 
 # -- the moe family (granite-moe-1b-a400m) ------------------------------------
