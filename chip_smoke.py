@@ -174,7 +174,20 @@ runs these phases, and fails (non-zero exit) if any check fails:
    alone;
 11. examples — each of the four ``examples/torch/*.py`` as its own
    process on the card at its smallest documented size; a non-zero exit
-   fails the run.
+   fails the run;
+12. analysis — the contract auditor (``repro_torch.analysis``) on the
+   card, after every timed phase: (a) its AST passes over this
+   checkout's ``src/repro_torch`` against the committed baseline (no new
+   finding, no stale key); (c) the recompile guard: each kernel library
+   loaded once in the process, the engine's step-function caches one
+   entry per configuration (and speculation window) the script served,
+   and three requests of 5, 9 and 17 prompt tokens adding no rotary
+   entry after the first step; (b) the 20 hot paths of the op audit on
+   the card, each row printed beside the CPU budget's counts: the 12
+   serve steps with 0 float64 ops, 0 widenings and 0 host waits, the
+   region step and the miss fold with no host wait, the combination
+   step with exactly one (its miss flag), every carry leaf in place, and
+   ``sample_attr`` launched on every device-pipeline path.
 
 Each phase's seconds are printed on a line of their own. The line
 before the last is a JSON object listing every kernel; the last
@@ -2145,6 +2158,140 @@ def examples_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the contract auditor on the card.
+# ---------------------------------------------------------------------------
+
+def record_served_keys():
+    """From now on, the step-function keys of every ``Engine`` built:
+    ``{"step": {cfg}, "spec": {(cfg, window, sinks)}}`` (one set add per
+    engine, nothing per step)."""
+    from repro_torch.serve.engine import Engine
+    keys = {"step": set(), "spec": set()}
+    orig = Engine.__init__
+
+    def init(self, cfg, params, serve_cfg, *args, **kw):
+        orig(self, cfg, params, serve_cfg, *args, **kw)
+        keys["step"].add(cfg)
+        if serve_cfg.spec_len:
+            keys["spec"].add((cfg, serve_cfg.spec_window,
+                              serve_cfg.spec_sinks))
+
+    Engine.__init__ = init
+    return keys
+
+
+def recompile_guard(dev, served):
+    """(c) One key, one cache entry, on the card after every other phase:
+    each kernel library loaded once in this process; the engine's step
+    function caches hold one entry per (config[, window, sinks]) served;
+    then three staggered requests of different prompt lengths on a
+    reduced config add one step-function entry and no rotary one after
+    the first step, and ``_rope_freqs`` hits its (d_head, theta, device)
+    key."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.op_audit import jit_cache_size
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.sample_attr import ops as sops
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (Engine, Request, ServeConfig,
+                                          _spec_step_fns, _step_fns)
+    for name, mod in (("sample_attr", sops), ("flash_attention", fops),
+                      ("rmsnorm", rops)):
+        info = mod._kernel.cache_info()
+        log(f"analysis (c): {name} library loads: {info.misses} "
+            f"(calls {info.hits + info.misses})")
+        check(info.misses == 1 and info.currsize == 1,
+              f"analysis (c): {name} loaded {info.misses} times")
+    for fns, key in ((_step_fns, "step"), (_spec_step_fns, "spec")):
+        log(f"analysis (c): {fns.__name__}: {jit_cache_size(fns)} entries "
+            f"for {len(served[key])} keys served")
+        check(jit_cache_size(fns) == len(served[key]),
+              f"analysis (c): {fns.__name__} holds {jit_cache_size(fns)} "
+              f"entries for {len(served[key])} keys")
+    cfg = get_config(MODEL_ARCH).reduced()
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg,
+                           device=dev)
+    steps0, rope0 = jit_cache_size(_step_fns), L._rope_freqs.cache_info()
+    eng = Engine(cfg, params, ServeConfig(max_batch=3, max_len=64,
+                                          eos_token=-1), device=dev)
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, n)
+                    .astype(np.int32), max_new_tokens=6)
+            for i, n in enumerate((5, 9, 17))]
+    eng.add_request(reqs[0])
+    eng.step()
+    rope1 = L._rope_freqs.cache_info()
+    for r in reqs[1:]:
+        eng.add_request(r)
+    for _ in range(40):
+        eng.step()
+        if all(r is None for r in eng.slot_req):
+            break
+    check(all(r.done for r in reqs), "analysis (c): probe requests")
+    rope2 = L._rope_freqs.cache_info()
+    check(jit_cache_size(_step_fns) == steps0 + 1,
+          "analysis (c): the probe config's step functions built twice")
+    check(rope2.currsize == rope1.currsize and rope2.hits > rope1.hits,
+          f"analysis (c): rotary frequencies grew across prompt lengths "
+          f"({rope1.currsize} -> {rope2.currsize})")
+    L._rope_freqs(cfg.head_dim, cfg.rope_theta, torch.device(dev.type, 0))
+    check(L._rope_freqs.cache_info().misses == rope2.misses,
+          "analysis (c): the rotary key is not (d_head, theta, device)")
+    log(f"analysis (c): prompts of 5, 9 and 17 tokens: step functions "
+        f"{steps0} -> {jit_cache_size(_step_fns)}, rotary entries "
+        f"{rope0.currsize} -> {rope1.currsize} after the first step -> "
+        f"{rope2.currsize} after the rest ({rope2.hits - rope1.hits} hits)")
+
+
+def analysis_phase(dev, served):
+    """(a) the auditor's layer 1 over this checkout; (c) the recompile
+    guard (before (b), whose serve audits add their reduced configs to
+    the step caches); (b) the 20 hot paths on the card under the
+    auditor's dispatch mode, each row printed beside the committed CPU
+    budget's counts (not compared: on the card the fold is a ctypes
+    kernel the mode does not see), with the contracts that carry over
+    checked absolutely."""
+    from repro_torch.analysis import BUDGET_PATH, run_audit, scan_repo
+    from repro_torch.analysis import baseline as bl
+    from repro_torch.analysis.op_audit import audit_hot_paths
+    res = run_audit(op_audit=False)
+    log(f"analysis (a): layer 1 over {len(scan_repo())} files: "
+        f"{len(res.findings)} findings, {len(res.ratchet.new)} new, "
+        f"{len(res.ratchet.stale_keys)} stale baseline keys")
+    check(res.ratchet.ok and not res.ratchet.stale_keys,
+          "analysis (a): " + "; ".join(f.render() for f in res.ratchet.new))
+    recompile_guard(dev, served)
+    budget = bl.load_budget(BUDGET_PATH)
+    reports = audit_hot_paths(device=dev)
+    check(sorted(r.name for r in reports) == sorted(budget),
+          "analysis (b): hot paths differ from the budget's")
+    for r in reports:
+        b = budget[r.name]
+        log(f"analysis (b): {r.render()} | CPU budget {b['f64_ops']} f64 "
+            f"ops, {b['f64_widenings']} widenings, {b['host_callbacks']} "
+            f"host waits")
+        check(r.donated_aliased == r.donated_expected,
+              f"analysis (b): {r.name}: carry in place "
+              f"{r.donated_aliased}/{r.donated_expected}")
+        if r.name.startswith("serve/"):
+            check((r.f64_ops, r.f64_widenings, r.host_callbacks)
+                  == (0, 0, 0), f"analysis (b): {r.render()}")
+        if r.name.startswith("device_pipeline/"):
+            check(r.donated_expected == 4, f"analysis (b): {r.render()}")
+            check(r.launches.get("sample_attr_fold", 0) >= 1,
+                  f"analysis (b): {r.name} did not launch sample_attr")
+        if "/region_run/" in r.name or "/combo_fold/" in r.name:
+            check(r.host_callbacks == 0, f"analysis (b): {r.render()}")
+        if "/combo_step/" in r.name:
+            check(r.callback_prims == ("_local_scalar_dense",),
+                  f"analysis (b): {r.render()}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the model paths at full width.
 # ---------------------------------------------------------------------------
 
@@ -3890,6 +4037,7 @@ def main():
         f"({' '.join(_build.NVCC_FLAGS)})")
 
     dev = torch.device("cuda")
+    served = record_served_keys()
     # The main path runs before any torch.profiler session: a process that
     # has traced the device pays more host time per launch afterwards, and
     # the chunk loop is launch-bound (PERF.md).
@@ -3993,6 +4141,8 @@ def main():
         paths["xlstm_train_launches"] = train_phase(dev, SSM_ARCH)["launches"]
     with phase("examples"):
         examples_phase()
+    with phase("analysis"):
+        analysis_phase(dev, served)
 
     split = fold.pop("split_ms")
     combo_fold.pop("split_ms")

@@ -532,6 +532,24 @@ def _blend_idle(chan, frac: float, idle_power: float, idle_ch: int):
     return chan
 
 
+def _region_step(carry, prev, dtl: DeviceTimeline, spec: SensorSpec,
+                 update, root, u0: float, k: int, chunk_size: int,
+                 period: float, jitter: float, frac: float,
+                 idle_power: float, idle_ch: int):
+    """One chunk of the region pipeline (the reference's ``fori_loop``
+    body): chunk ``k``'s samples folded into ``carry`` = (counts, Σpow,
+    Σpow², n), in place. Returns ``(carry, prev)``: the same four tensors
+    and the RAPL prev sample after the chunk (a new tensor)."""
+    counts, psum, psumsq, n = carry
+    rid_mat, chan, valid, prev = _chunk_samples(
+        dtl, spec, root, u0, k, chunk_size, period, jitter, prev)
+    if frac > 0.0:
+        chan = _blend_idle(chan, frac, idle_power, idle_ch)
+    update(counts, psum, psumsq, rid_mat[0], chan, valid)
+    n += valid.sum()
+    return carry, prev
+
+
 def run_region_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
                         period: float, jitter: float = 200e-6, seed: int = 0,
                         chunk_size: int = DEFAULT_CHUNK,
@@ -556,19 +574,16 @@ def run_region_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
     R = dtl.num_regions
     update = make_carry_update(R)
     idle_ch = idle_channel(spec.domains)
-    counts, psum, psumsq = _zero_carry(R, num_channels(spec.num_domains),
-                                       dev)
-    n = torch.zeros((), dtype=torch.int64, device=dev)
+    carry = (*_zero_carry(R, num_channels(spec.num_domains), dev),
+             torch.zeros((), dtype=torch.int64, device=dev))
     prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
     root = threefry.PRNGKey(seed)
     u0 = _phase(root, period)
     for k in range(num_chunks(dtl.t_end, period, chunk_size)):
-        rid_mat, chan, valid, prev = _chunk_samples(
-            dtl, spec, root, u0, k, chunk_size, period, jitter, prev)
-        if frac > 0.0:
-            chan = _blend_idle(chan, frac, idle_power, idle_ch)
-        update(counts, psum, psumsq, rid_mat[0], chan, valid)
-        n += valid.sum()
+        carry, prev = _region_step(carry, prev, dtl, spec, update, root, u0,
+                                   k, chunk_size, period, jitter, frac,
+                                   idle_power, idle_ch)
+    counts, psum, psumsq, n = carry
     n = int(n)
     if n == 0:
         raise ValueError("run too short for sampling period")
@@ -742,6 +757,41 @@ def _admit_or_fold(rows: np.ndarray, interner: CombinationInterner,
     return uids[inverse], folded
 
 
+def _combo_step(carry, prev, table: _ComboTable, dtl: DeviceTimeline,
+                spec: SensorSpec, root, u0: float, k: int, chunk_size: int,
+                period: float, jitter: float):
+    """The hit path of one combination-pipeline chunk (the reference's
+    ``_combo_step_fn``): chunk ``k``'s worker-region rows looked up in
+    ``table`` and, when every in-horizon row hits, folded into ``carry``
+    = (counts, Σpow, Σpow², n) in place. Returns ``(carry, prev, miss)``:
+    the same four tensors, the RAPL prev sample after the chunk (a new
+    tensor; ``prev`` itself is not written, so a miss can replay the
+    chunk from it) and the miss flag, read on the host (the chunk's one
+    wait for the device)."""
+    counts, psum, psumsq, n = carry
+    rid_mat, chan, valid, prev = _chunk_samples(
+        dtl, spec, root, u0, k, chunk_size, period, jitter, prev)
+    ids, found = table.lookup(rid_mat)
+    # Any in-horizon row missing from the table aborts the device
+    # fold for the WHOLE chunk, so no sample is ever half-counted.
+    any_miss = (valid & ~found).any()
+    fold = valid & found & ~any_miss
+    sample_attr_fold(counts, psum, psumsq, ids, chan, fold)
+    n += fold.sum()
+    return carry, prev, bool(any_miss)
+
+
+def _combo_fold(carry, idx, pows, valid):
+    """The miss path's fold (the reference's ``_combo_fold``): interner
+    ids ``idx`` [c] int32 (``cap`` past the end for lanes out of the
+    horizon) and channel powers ``pows`` folded into ``carry`` = (counts,
+    Σpow, Σpow², n) in place; returns it."""
+    counts, psum, psumsq, n = carry
+    sample_attr_fold(counts, psum, psumsq, idx, pows, valid)
+    n += valid.sum()
+    return carry
+
+
 def run_combo_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
                        period: float, jitter: float = 200e-6, seed: int = 0,
                        chunk_size: int = DEFAULT_CHUNK,
@@ -798,26 +848,21 @@ def run_combo_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
     miss_seconds = 0.0
     cap = _TABLE_MIN
     table = _build_table(interner, cap, pack, dev)
-    carry = _zero_carry(cap, n_chan, dev)
-    n = torch.zeros((), dtype=torch.int64, device=dev)
+    carry = (*_zero_carry(cap, n_chan, dev),
+             torch.zeros((), dtype=torch.int64, device=dev))
     prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
     root = threefry.PRNGKey(seed)
     u0 = _phase(root, period)
     k_chunks = num_chunks(dtl.t_end, period, chunk_size)
     for k in range(k_chunks):
         prev_in = prev      # never written in place: the replay's start
-        rid_mat, chan, valid, prev = _chunk_samples(
-            dtl, spec, root, u0, k, chunk_size, period, jitter, prev)
-        ids, found = table.lookup(rid_mat)
-        # Any in-horizon row missing from the table aborts the device
-        # fold for the WHOLE chunk, so no sample is ever half-counted.
-        any_miss = (valid & ~found).any()
-        fold = valid & found & ~any_miss
-        sample_attr_fold(*carry, ids, chan, fold)
-        n += fold.sum()
-        if not bool(any_miss):
+        carry, prev, miss = _combo_step(carry, prev, table, dtl, spec, root,
+                                        u0, k, chunk_size, period, jitter)
+        if not miss:
             continue
         miss_chunks += 1
+        # audit: allow(no-wallclock) host time of the miss path, reported
+        # in stats only: no time read here reaches a sample
         t_miss = time.perf_counter()
         rid_mat, chan, valid, _ = _chunk_samples(
             dtl, spec, root, u0, k, chunk_size, period, jitter, prev_in)
@@ -832,14 +877,17 @@ def run_combo_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
         if len(interner) > cap:
             new_cap = _table_cap(len(interner))
             pad = _zero_carry(new_cap - cap, n_chan, dev)
-            carry = tuple(torch.cat([a, b]) for a, b in zip(carry, pad))
+            carry = (*(torch.cat([a, b]) for a, b in zip(carry, pad)),
+                     carry[3])
             cap = new_cap
         table = _build_table(interner, cap, pack, dev)
         idx = np.full(chunk_size, cap, np.int32)
         idx[valid_h] = cids
-        sample_attr_fold(*carry, torch.from_numpy(idx).to(dev), chan, valid)
-        n += valid.sum()
+        carry = _combo_fold(carry, torch.from_numpy(idx).to(dev), chan,
+                            valid)
+        # audit: allow(no-wallclock) see t_miss above
         miss_seconds += time.perf_counter() - t_miss
+    counts, psum, psumsq, n = carry
     n = int(n)
     if stats is not None:
         stats["chunks"] = k_chunks
@@ -850,7 +898,8 @@ def run_combo_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
     if n == 0:
         raise ValueError("run too short for sampling period")
     k_combos = len(interner)
-    counts, psum, psumsq = (a[:k_combos].cpu().numpy() for a in carry)
+    counts, psum, psumsq = (a[:k_combos].cpu().numpy()
+                            for a in (counts, psum, psumsq))
     agg = StreamingCombinationAggregator.from_table(
         interner.combo_matrix(), counts, psum, psumsq,
         domains=dtl.domains, k=max_combinations)

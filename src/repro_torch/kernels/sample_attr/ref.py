@@ -33,9 +33,15 @@ def sample_attr_fold_ref(counts, psum, psumsq, ids, pows, valid=None):
     ok = (ids >= 0) & (ids < R)
     if valid is not None:
         ok = ok & valid
-    idx = ids[ok].to(torch.int64)
-    counts.index_add_(0, idx, torch.ones_like(idx))
-    pw = (pows[ok] if psum.ndim == 1 else pows[:, ok].T).to(psum.dtype)
+    # Masked lanes add a zero into row 0 rather than being selected out:
+    # a boolean selection is sized by the data, and on the GPU that makes
+    # the host wait for the device. x + 0.0 is x, so the sums are those of
+    # the selected lanes.
+    idx = torch.where(ok, ids, 0).to(torch.int64)
+    counts.index_add_(0, idx, ok.to(torch.int64))
+    pw = pows if psum.ndim == 1 else pows.T
+    pw = torch.where(ok if psum.ndim == 1 else ok[:, None], pw,
+                     0.0).to(psum.dtype)
     psum.index_add_(0, idx, pw)
     psumsq.index_add_(0, idx, pw * pw)
     return counts, psum, psumsq

@@ -28,7 +28,12 @@ DTensor runs) reads per-device numbers:
 
 The layer and chunk loops are Python, so one run counts every layer (the
 reference needs a second, unrolled compile for that): ``unroll`` keeps
-only its effect on the chunk sizes. Nothing reads a value, as XLA's
+only its effect on the chunk sizes. The sLSTM's recurrence is a Python
+loop of S steps of a dozen small ops each; running every step on meta
+tensors takes minutes a layer at S = 32768, so the dry run meters a few
+of them and scales one steady step by the trip count
+(:func:`_scaled_slstm_scan`; the rows equal the stepped ones, which
+``lower_cell(scale_scans=False)`` still gives). Nothing reads a value, as XLA's
 tracing reads none: ``.item()``, ``nonzero`` and ``unique`` fail on
 meta. The rows are priced at the reference's default spec (``TPU_V5E``)
 so that they compare with its rows; ``lower_cell(hw=H100_SXM)`` prices a
@@ -40,6 +45,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import sys
@@ -160,19 +166,21 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
-def _tensors(tree) -> list:
-    out = []
-
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            out.append(x)
-        elif isinstance(x, (list, tuple)):
-            for y in x:
-                walk(y)
-        elif isinstance(x, dict):
-            for y in x.values():
-                walk(y)
-    walk(tree)
+def _tensors(tree, out=None) -> list:
+    """The tensors of a nest of lists, tuples and dicts. No closure: a
+    recursive inner function would make a reference cycle holding every
+    tensor it saw until the garbage collector ran, and the meter's live
+    bytes would follow the collector instead of the program."""
+    if out is None:
+        out = []
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for y in tree:
+            _tensors(y, out)
+    elif isinstance(tree, dict):
+        for y in tree.values():
+            _tensors(y, out)
     return out
 
 
@@ -193,9 +201,56 @@ class Meter(TorchDispatchMode):
         self.coll_lines: list[str] = []
         self.live = 0
         self.peak = 0
+        self._window_peak = 0
+        self._log = None
 
     def _free(self, n):
         self.live -= n
+
+    def mark(self) -> dict:
+        """Open a window over what follows (see :meth:`since`)."""
+        self._window_peak = self.live
+        self._log = []
+        return {"flops": self.flops, "bytes": self.bytes,
+                "lines": len(self.coll_lines), "live": self.live}
+
+    def since(self, mark: dict) -> "_Period":
+        """What the window opened at ``mark`` added: FLOPs, bytes, the
+        change of the live bytes, the live peak above its start, the
+        tensors made in it that are still alive, and the in-place results
+        registered on tensors still alive. A window holds no collective
+        (it is a per-block core)."""
+        log, self._log = self._log, None
+        if len(self.coll_lines) != mark["lines"]:
+            raise RuntimeError("a metered window issued collectives")
+        alive = [(r, nb, inplace) for r, nb, inplace in log
+                 if r() is not None]
+        return _Period(
+            flops=self.flops - mark["flops"],
+            bytes=self.bytes - mark["bytes"],
+            live=self.live - mark["live"],
+            tau=self._window_peak - mark["live"],
+            retained=[(r, nb) for r, nb, inplace in alive if not inplace],
+            inplace=[(r, nb) for r, nb, inplace in alive if inplace])
+
+    def credit(self, period: "_Period", k: int) -> None:
+        """Count ``k`` more repetitions of ``period`` as if they had run
+        here: their FLOPs and bytes, the live bytes they leave (each repetition starting where the last ended, so the
+        peak is the last one's), and, for each in-place result the
+        period registered on a tensor still alive, ``k`` more
+        registrations, released with that tensor as a run of them
+        would be."""
+        if k <= 0:
+            return
+        self.flops += k * period.flops
+        self.bytes += k * period.bytes
+        self.peak = max(self.peak, self.live + max(0, (k - 1) * period.live)
+                        + period.tau)
+        self.live += k * period.live
+        for ref, nb in period.inplace:
+            t = ref()
+            if t is not None:
+                weakref.finalize(t, self._free, k * nb)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -227,18 +282,121 @@ class Meter(TorchDispatchMode):
                                                   out_val=out))
         if name in _NO_BYTES or func.is_view:
             return out
-        self.bytes += sum(_nbytes(t) for t in _tensors(args) + outs)
+        ins = _tensors(args)
+        self.bytes += sum(_nbytes(t) for t in ins + outs)
         for t in outs:
             nb = _nbytes(t)
             self.live += nb
             self.peak = max(self.peak, self.live)
+            self._window_peak = max(self._window_peak, self.live)
             weakref.finalize(t, self._free, nb)
+            if self._log is not None:
+                self._log.append((weakref.ref(t), nb,
+                                  any(t is a for a in ins)))
         return out
 
     def hlo_text(self) -> str:
         """The collectives as HLO-style lines (output shape, kind), which
         ``roofline_terms`` parses."""
         return "\n".join(self.coll_lines)
+
+
+@dataclasses.dataclass
+class _Period:
+    """One window of a :class:`Meter` (:meth:`Meter.since`)."""
+    flops: int
+    bytes: int
+    live: int
+    tau: int
+    retained: list
+    inplace: list
+
+
+# Fewer steps than this run stepped: the scaled scan runs four of them.
+_SCALE_MIN = 8
+
+
+def _scaled_slstm_scan(meter: Meter, stepped, xw, r, b, *,
+                       cfg: ModelConfig):
+    """:func:`repro_torch.models.xlstm._slstm_scan`'s cost, metered on
+    four steps and scaled to all S of them (``stepped`` is that function,
+    run as it is below :data:`_SCALE_MIN` steps).
+
+    Steps 0, 1, S-2 and S-1 run as the loop runs them (step 1 metered);
+    the S-4 between are :meth:`Meter.credit`-ed as repetitions of step 1,
+    and the output stacks S entries (the credited ones a detached step-1
+    h, which reads the same bytes and takes no gradient). What a
+    credited step leaves live is released when its stepped counterpart
+    would be: at the end of the scan for what step 1's tensors lose there
+    (the ``hs`` list), and in the backward, where step S-2's backward
+    (from the first node of its outputs to the first of step 1's) is
+    metered and credited S-4 times at step 1's, for what the autograd
+    graph keeps. Every step after the first issues the same ops on the
+    same shapes, so the totals are the stepped loop's."""
+    from repro_torch.models import xlstm
+    B, S = xw.shape[:2]
+    if S < _SCALE_MIN:
+        return stepped(xw, r, b, cfg=cfg)
+    d = xw.shape[-1] // 4
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xw, r, b))
+    backward = {}
+    carry = tuple(torch.zeros((B, d), dtype=torch.float32, device=xw.device)
+                  for _ in range(4))
+    hs = []
+    for t in (0, 1, S - 2, S - 1):
+        if t == 1:
+            mark = meter.mark()
+        carry = xlstm._slstm_step({"r": r, "b": b}, cfg, carry, xw[:, t])
+        hs.append(carry[2])
+        if t == 1:
+            fwd = meter.since(mark)
+            meter.credit(fwd, S - 4)
+        if grad and t in (1, S - 2):
+            _backward_hook(meter, backward, carry, S - 4,
+                           opens=t == S - 2)
+    h1 = hs[1].detach()
+    y = torch.stack(hs[:2] + [h1] * (S - 4) + hs[2:], dim=1)
+    # The stepped scan's hs list goes with its frame: release what each
+    # credited step's tensors lose there, as step 1's lose it.
+    kept = [(ref, nb) for ref, nb in fwd.retained if ref() is not None]
+    del hs, h1
+    meter.live -= (S - 4) * sum(nb for ref, nb in kept if ref() is None)
+    return (y,) + tuple(carry)
+
+
+def _backward_hook(meter: Meter, state: dict, outputs, k: int, *,
+                   opens: bool) -> None:
+    """Hooks on one step's outputs: the first to fire opens (``opens``)
+    or closes a window over the backward between two steps' first nodes;
+    closing credits the window ``k`` times (see
+    :func:`_scaled_slstm_scan`). No tensor is kept."""
+    def hook(_grad):
+        if opens and "mark" not in state:
+            state["mark"] = meter.mark()
+        elif not opens and "mark" in state and "done" not in state:
+            state["done"] = True
+            meter.credit(meter.since(state["mark"]), k)
+
+    for t in outputs:
+        if t.requires_grad:
+            t.register_hook(hook)
+
+
+@contextlib.contextmanager
+def _scaled_scans(meter: Meter, on: bool):
+    """While the cell runs: the sLSTM scan scaled (``on``) or stepped."""
+    from repro_torch.models import xlstm
+    if not on:
+        yield
+        return
+    stepped = xlstm._slstm_scan
+    xlstm._slstm_scan = functools.partial(_scaled_slstm_scan, meter,
+                                          stepped)
+    try:
+        yield
+    finally:
+        xlstm._slstm_scan = stepped
 
 
 class _MetaInit(TorchFunctionMode):
@@ -275,7 +433,7 @@ def fake_world(n: int) -> None:
 
 
 def _run_cell(cfg: ModelConfig, shape: ShapeConfig, rules, attn_impl: str,
-              *, unroll: bool, fsdp: bool):
+              *, unroll: bool, fsdp: bool, scale_scans: bool = True):
     """Build the cell's abstract arguments, distribute them, run its step
     under a :class:`Meter`; returns (meter, local argument bytes)."""
     batch = input_specs(cfg, shape)
@@ -297,14 +455,14 @@ def _run_cell(cfg: ModelConfig, shape: ShapeConfig, rules, attn_impl: str,
                                unroll=unroll, q_chunk=q_chunk,
                                ce_chunk=ce_chunk, ssd_chunk=ssd_chunk)
         args = (state, batch)
-        with meter:
+        with meter, _scaled_scans(meter, scale_scans):
             step(state, batch)
     else:
         params = _meta_params(cfg)
         params = sp.distribute(params, sp.param_specs(params, rules), rules)
         if shape.kind == "prefill":
             args = (params, batch)
-            with meter, torch.no_grad():
+            with meter, _scaled_scans(meter, scale_scans), torch.no_grad():
                 if cfg.is_encoder:
                     M.forward(params, cfg, batch, attn_impl=attn_impl,
                               q_chunk=q_chunk, ssd_chunk=ssd_chunk)
@@ -329,12 +487,14 @@ def _run_cell(cfg: ModelConfig, shape: ShapeConfig, rules, attn_impl: str,
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                attn_impl: str = "chunked", donate: bool = True,
                mesh=None, cfg_override=None, unroll: bool = True,
-               fsdp: bool = True, hw=None):
+               fsdp: bool = True, hw=None, scale_scans: bool = True):
     """Run and meter one cell. Returns (row, meter); (row with
     ``skipped``, None) for a cell the arch does not run. ``donate`` is
     the reference's buffer-donation knob: the port's step updates its
     state and cache in place, so it changes nothing. ``hw`` prices the
-    row (the reference's default spec when None)."""
+    row (the reference's default spec when None). ``scale_scans=False``
+    steps every sLSTM step instead of scaling one (the same row,
+    slowly)."""
     del donate
     cfg = cfg_override or get_config(arch)
     shape = SHAPES[shape_name]
@@ -353,7 +513,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
 
     with axis_rules(rules):
         meter, local_bytes = _run_cell(cfg, shape, rules, attn_impl,
-                                       unroll=unroll, fsdp=fsdp)
+                                       unroll=unroll, fsdp=fsdp,
+                                       scale_scans=scale_scans)
 
     cost = {"flops": float(meter.flops), "bytes accessed": float(meter.bytes)}
     n_tokens = shape.global_batch * (shape.seq_len if not shape.is_decode

@@ -90,3 +90,54 @@ def test_fake_backend_import_is_pinned():
     import torch.distributed as dist
     assert issubclass(FakeStore, dist.Store)
     assert "fake" in dist.Backend.backend_list
+
+
+_SCALED_VS_STEPPED = """
+import dataclasses, json, sys, warnings, logging
+warnings.filterwarnings("ignore"); logging.disable(logging.WARNING)
+from repro_torch.configs.base import SHAPES
+from repro_torch.configs.registry import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import xlstm
+dryrun.fake_world(8)
+mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device="meta")
+cfg = get_config("xlstm-125m").reduced()
+step, steps = xlstm._slstm_step, []
+xlstm._slstm_step = lambda *a, **k: steps.append(1) or step(*a, **k)
+out = {}
+for shape in ("train_4k", "prefill_32k"):
+    dryrun.SHAPES = dict(SHAPES)
+    dryrun.SHAPES[shape] = dataclasses.replace(SHAPES[shape], seq_len=64)
+    for scaled in (False, True):
+        steps.clear()
+        row, _ = dryrun.lower_cell("xlstm-125m", shape, multi_pod=True,
+                                   mesh=mesh, cfg_override=cfg,
+                                   scale_scans=scaled)
+        out[f"{shape} {scaled}"] = dict(row, steps=len(steps))
+print("ROWS " + json.dumps(out, default=str))
+"""
+
+
+@pytest.mark.timeout(600)
+def test_scaled_slstm_rows_equal_the_stepped_rows():
+    """The dry run meters four sLSTM steps and scales one by the trip
+    count (ROADMAP A11b: stepping every position of xlstm-125m's
+    prefill_32k took more than 25 minutes on the CPU). On the reduced
+    config at S = 64, train (forward and backward) and prefill, the
+    scaled row equals the stepped one exactly: FLOPs, HBM bytes,
+    collective bytes by kind and bytes per device (the peak of the live
+    bytes, which the credited steps hold and release as the stepped ones
+    do)."""
+    rows = compare.rows(compare.start(_SCALED_VS_STEPPED, []))
+    for shape in ("train_4k", "prefill_32k"):
+        stepped, scaled = rows[f"{shape} False"], rows[f"{shape} True"]
+        for key in ("flops_per_device", "hbm_bytes_per_device",
+                    "coll_bytes_per_device", "bytes_per_device",
+                    "collectives", "collective_counts"):
+            assert scaled[key] == stepped[key], (shape, key)
+        # one sLSTM layer: S steps a pass stepped, four scaled (train
+        # runs the scan twice: the forward and remat's recomputation)
+        passes = 2 if shape == "train_4k" else 1
+        assert stepped["steps"] == 64 * passes, shape
+        assert scaled["steps"] == 4 * passes, shape
