@@ -31,7 +31,8 @@ runs these phases, and fails (non-zero exit) if any check fails:
               workers of that timeline (4-word keys), >= 5·10^7 samples,
               10^4-10^5 combinations, counters set to 0 just before and
               read just after (one fold per chunk plus one per miss
-              chunk); wall per layer of one steady-state chunk;
+              chunk); both print the host ms per chunk of each stage
+              from the profile's own record (``core.spans``);
    exchange — the cross-host shard exchange in an NCCL world of one:
               ``CollectiveExchange`` and ``CheckpointExchange`` reduce
               combo-full's and the full run's aggregators to themselves
@@ -95,9 +96,9 @@ runs these phases, and fails (non-zero exit) if any check fails:
 5. breakdown — ``sample_attr`` on the full cell's own chunk (k = 700:
               the ids, channels and mask the main path folds), held
               and timed as in phase 4: this is the kernel line's
-              ``sample_attr`` row; then wall time per call of each layer
-              of one chunk and, from a torch.profiler trace, kernels per
-              chunk and the device's busy share (measured, not checked);
+              ``sample_attr`` row; then, from a torch.profiler trace,
+              kernels per chunk and the device's busy share (measured,
+              not checked);
               and ``sample_attr`` on a chunk of the energy phase's 100 µs
               run, held and timed alike (the kernel line's ``energy``
               path);
@@ -1327,6 +1328,9 @@ def full_phase(tl):
         f"({n / secs:.4e} samples/s), peak device memory "
         f"{peak / 2 ** 20:.1f} MiB, sample_attr launches {launches}, "
         f"regions attributed {len(est.table)}")
+    check(prof.last_trace.counters["chunks"] == n_chunks,
+          "full: the profile's record counts its chunks")
+    log_stages("full", prof.last_trace)
     check(len(aggs) == 1, "full: one aggregator built")
     return dict(n=n, chunks=n_chunks, seconds=secs, launches=launches,
                 peak_bytes=peak, agg=aggs[0])
@@ -1364,14 +1368,41 @@ class FullChunk:
             f"{ids.size / max(runs, 1):.0f} samples)")
 
 
+def log_stages(tag, trace):
+    """Host ms per chunk of each stage of one profile through the device
+    pipeline, from the profile's own record (:mod:`repro_torch.core.
+    spans`): the stages directly under ``alea.pipeline`` (a miss path's
+    replays sit inside ``miss``), their share of the pipeline, the rows
+    one miss brings to the host (P1), and the entry's upload with its
+    copy rate (P10) where the record holds it."""
+    got = trace.counters
+    chunks, misses = got["chunks"], got.get("miss_chunks", 0)
+    pipe = trace.seconds("alea.pipeline")
+    stages = {name[5:]: trace.seconds(name, parent="alea.pipeline")
+              for name in ("alea.clock", "alea.lookup", "alea.sensor",
+                           "alea.search", "alea.fold", "alea.miss_flag",
+                           "alea.miss", "alea.readback", "alea.estimate")}
+    stages = {k: v for k, v in stages.items() if v > 0}
+    upload = trace.seconds("alea.upload")
+    copy = trace.seconds("alea.upload.copy")
+    log(f"{tag} stages (host ms per chunk, the profile's own spans; "
+        f"{chunks} chunks, {misses} missed"
+        + (f", {got['miss_rows'] / misses:.0f} rows a miss" if misses
+           else "") + "): "
+        + ", ".join(f"{k} {v / chunks * 1e3:.3f}" for k, v in stages.items())
+        + f"; {100 * sum(stages.values()) / pipe:.1f}% of the pipeline's "
+        f"{pipe:.3f} s"
+        + (f"; upload {upload * 1e3:.1f} ms, its copy "
+           f"{got['upload_bytes'] / copy * 1e-9:.2f} GB/s" if upload
+           else ""))
+
+
 def breakdown_phase(tl):
     """The fold on the full cell's own chunk (k = 700: the ids, channels
     and mask the main path launches it with), held and timed by
-    :func:`fold_row`; then where one chunk's time goes: host wall time per
-    call of each layer (clock, lookup, sensor, fold; the loop is
-    launch-bound, so wall time is what a layer costs the run), and, from
-    a torch.profiler trace of whole chunks, kernels per chunk and the
-    device's busy share (measured, not checked). Returns the fold's row."""
+    :func:`fold_row`; then, from a torch.profiler trace of whole chunks,
+    kernels per chunk and the device's busy share (measured, not
+    checked). Returns the fold's row."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1381,15 +1412,8 @@ def breakdown_phase(tl):
     ch = FullChunk(tl, dev)
     dtl, spec, root, u0, k, c = ch.dtl, ch.spec, ch.root, ch.u0, ch.k, ch.c
     period, jitter, prev = ch.period, ch.jitter, ch.prev
-    arrs = dtl.arrays()
-    ends, bounds, eint, powers, rids, m_true, grid, cell = arrs
-    t_raw = dp._raw_chunk_times(root, u0, k, c, period, jitter, dev)
-    valid = t_raw < dtl.t_end
-    t = torch.clamp_max(t_raw, dtl.t_end)
-    cnt = dp._count_le(ends, grid, cell, t, dtl.grid_k)
-    rid, chan = ch.ids, ch.pows
     R, C = ch.R, ch.C
-    row = fold_row(f"full chunk k={k}", R, C, rid, chan, ch.valid)
+    row = fold_row(f"full chunk k={k}", R, C, ch.ids, ch.pows, ch.valid)
     carry = fresh_carry(R, C, dev)
 
     def chunk():
@@ -1397,18 +1421,6 @@ def breakdown_phase(tl):
                                         jitter, prev)
         ops.sample_attr_fold(*carry, r[0], ch, v)
 
-    layers = {
-        "clock": lambda: dp._raw_chunk_times(root, u0, k, c, period,
-                                             jitter, dev),
-        "lookup": lambda: dp._count_le(ends, grid, cell, t, dtl.grid_k),
-        "sensor": lambda: dp._sensor_powers(spec, arrs, t, cnt, valid, prev,
-                                            dtl.grid_k),
-        "fold": lambda: ops.sample_attr_fold(*carry, rid, chan, valid),
-        "chunk": chunk,
-    }
-    walls = {name: wall_ms(fn, iters=50) for name, fn in layers.items()}
-    log("breakdown (wall ms per call, full cell shapes): " + ", ".join(
-        f"{name} {ms:.3f}" for name, ms in walls.items()))
     chunks = 20
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1511,66 +1523,15 @@ class ComboChunk:
                                  self.k, self.c, self.period, self.jitter,
                                  self.prev)
 
-    def step(self, carry, read_flag=True):
+    def step(self, carry):
         """The steady-state pass of run_combo_pipeline's chunk loop:
-        sample, look up, fold, read the miss flag (``read_flag=False``
-        leaves the flag on the device, so the host may run ahead)."""
+        sample, look up, fold, read the miss flag."""
         from repro_torch.kernels.sample_attr import ops
         rid_mat, chan, valid, _ = self.samples()
         ids, found = self.table.lookup(rid_mat)
         any_miss = (valid & ~found).any()
         ops.sample_attr_fold(*carry, ids, chan, valid & found & ~any_miss)
-        return bool(any_miss) if read_flag else any_miss
-
-    def layer_walls(self):
-        """Host wall ms per call (after a sync) of each layer of one
-        chunk: clock, lookup, sensor, pack + search, fold, miss-flag read,
-        the whole step, and the step without its flag read (what the
-        per-chunk sync costs is the difference)."""
-        import torch
-        from repro_torch.core import device_pipeline as dp
-        from repro_torch.kernels.sample_attr import ops
-        dtl = self.dtl
-        arrs = dtl.arrays()
-        ends, grid, cell = arrs[0], arrs[6], arrs[7]
-        dev = dtl.device
-        t_raw = dp._raw_chunk_times(self.root, self.u0, self.k, self.c,
-                                    self.period, self.jitter, dev)
-        valid = t_raw < dtl.t_end
-        t = torch.clamp_max(t_raw, dtl.t_end)
-        cnt = dp._count_le(ends, grid, cell, t, dtl.grid_k)
-        rid_mat, _, _, _ = self.samples()
-        _, found = self.table.lookup(rid_mat)
-        carry = fresh_carry(self.cap, self.C, dev)
-        layers = {
-            "clock": lambda: dp._raw_chunk_times(
-                self.root, self.u0, self.k, self.c, self.period,
-                self.jitter, dev),
-            "lookup": lambda: dp._count_le(ends, grid, cell, t, dtl.grid_k),
-            "sensor": lambda: dp._sensor_powers(self.spec, arrs, t, cnt,
-                                                valid, self.prev,
-                                                dtl.grid_k),
-            "pack+search": lambda: self.table.lookup(rid_mat),
-            "fold": lambda: ops.sample_attr_fold(*carry, self.ids,
-                                                 self.pows, self.valid),
-            "miss-flag read": lambda: bool((valid & ~found).any()),
-            "chunk": lambda: self.step(carry),
-            "chunk without the flag read": lambda: self.step(
-                carry, read_flag=False),
-        }
-        return {name: wall_ms(fn) for name, fn in layers.items()}
-
-
-def wall_ms(fn, iters=20):
-    """Host wall ms per call of ``fn`` (synchronised before and after)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / iters * 1e3
+        return bool(any_miss)
 
 
 def combo_full_phase(tl):
@@ -1582,10 +1543,10 @@ def combo_full_phase(tl):
     branch of ``profile_multiworker_streaming``, called directly for its
     ``stats``) and read just after. Checks the sample count, the
     estimates, 10^4-10^5 combinations, and one ``sample_attr`` launch per
-    chunk plus one per miss chunk. Then the wall per layer of one
-    steady-state chunk."""
+    chunk plus one per miss chunk, and logs the host ms per chunk of each
+    stage from the run's own record."""
     import torch
-    from repro_torch.core import device_pipeline as dp, sensors
+    from repro_torch.core import device_pipeline as dp, sensors, spans
     from repro_torch.kernels.sample_attr import ops
     period = tl.t_exec / COMBO_SAMPLES
     jitter = 0.2 * period
@@ -1604,8 +1565,11 @@ def combo_full_phase(tl):
         c.launches = 0
     stats = {}
     t0 = time.perf_counter()
-    agg, n = dp.run_combo_pipeline(dtl, spec, period=period, jitter=jitter,
-                                   seed=0, chunk_size=chunk, stats=stats)
+    with spans.record("combination", seed=0, workers=dtl.num_workers,
+                      chunk_size=chunk) as trace:
+        agg, n = dp.run_combo_pipeline(dtl, spec, period=period,
+                                       jitter=jitter, seed=0,
+                                       chunk_size=chunk, stats=stats)
     secs = time.perf_counter() - t0
     launches = ops.sample_attr_fold.launches
     others = {c.__name__: c.launches for c in counters
@@ -1642,13 +1606,11 @@ def combo_full_phase(tl):
         f"{pack[2]} key words ({pack[0]} bits a region); sample_attr "
         f"launches {launches}; peak device memory {peak / 2 ** 20:.1f} "
         f"MiB; timelines built and uploaded in {build_s:.1f} s")
+    log_stages("combo-full", trace)
     ch = ComboChunk(dtl, spec, agg.interner, period, k=chunks - 2, c=chunk)
-    walls = ch.layer_walls()
-    log(f"combo-full breakdown (wall ms per call, chunk k={ch.k}): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
     return dict(n=n, chunks=chunks, miss_chunks=misses, seconds=secs,
                 launches=launches, peak_bytes=peak, distinct=distinct,
-                cap=cap, walls=walls, chunk=ch, agg=agg)
+                cap=cap, chunk=ch, agg=agg)
 
 
 def combo_fold_phase(combo):

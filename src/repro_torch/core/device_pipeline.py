@@ -64,13 +64,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 
 import numpy as np
 import torch
 
 from repro_torch.convert import resolve_device
-from repro_torch.core import threefry
+from repro_torch.core import spans, threefry
 from repro_torch.core.faults import SketchConfigError
 from repro_torch.core.sensors import (DEFAULT_IDLE_POWER, SensorSpec,
                                       _TraceSensorBase, idle_channel)
@@ -160,7 +159,11 @@ class DeviceTimeline:
     @classmethod
     def from_timelines(cls, timelines: list[Timeline],
                        device="cuda") -> "DeviceTimeline":
-        dev = resolve_device(device)
+        with spans.span("alea.upload"):
+            return cls._upload(timelines, resolve_device(device))
+
+    @classmethod
+    def _upload(cls, timelines: list[Timeline], dev) -> "DeviceTimeline":
         if not timelines:
             raise ValueError("need at least one timeline")
         names = timelines[0].names
@@ -180,42 +183,46 @@ class DeviceTimeline:
         D = len(domains)
         M = max(len(tl.region_ids) for tl in timelines)
         G = int(min(_GRID_OVERSAMPLE * M, _GRID_MAX))
-        ends = np.full((W, M), np.inf)
-        bounds = np.full((W, M + 1), np.inf)
-        eint = np.zeros((W, M + 1) if D == 1 else (W, D, M + 1))
-        powers = np.zeros((W, M) if D == 1 else (W, D, M))
-        rids = np.zeros((W, M), np.int32)
-        m_true = np.array([len(tl.region_ids) for tl in timelines], np.int32)
-        grid = np.zeros((W, G + 2), np.int32)
-        cell = np.zeros(W)
-        grid_k = 1
-        for w, tl in enumerate(timelines):
-            m = int(m_true[w])
-            ends[w, :m] = tl.ends
-            bounds[w, 0] = 0.0
-            bounds[w, 1:m + 1] = tl.ends
-            if D == 1:
-                eint[w, 1:m + 1] = tl.energy_integral()
-                powers[w, :m] = tl.powers
-            else:
-                eint[w, :, 1:m + 1] = tl.rail_energy_integral().T
-                powers[w, :, :m] = tl.rails().T
-            rids[w, :m] = tl.region_ids
-            cell[w] = tl.t_exec / G
-            # Same f64 products the lookup guard computes (g · cell), so
-            # grid[g] is exact for the comparisons the lookup performs.
-            pts = np.arange(G + 2, dtype=np.float64) * cell[w]
-            grid[w] = np.searchsorted(tl.ends, pts, side="right")
-            grid_k = max(grid_k, int(np.diff(grid[w]).max()))
-        if grid_k > _GRID_K_MAX:
-            grid_k = 0      # searchsorted route (see _count_le)
+        with spans.span("alea.upload.build"):
+            ends = np.full((W, M), np.inf)
+            bounds = np.full((W, M + 1), np.inf)
+            eint = np.zeros((W, M + 1) if D == 1 else (W, D, M + 1))
+            powers = np.zeros((W, M) if D == 1 else (W, D, M))
+            rids = np.zeros((W, M), np.int32)
+            m_true = np.array([len(tl.region_ids) for tl in timelines],
+                              np.int32)
+            grid = np.zeros((W, G + 2), np.int32)
+            cell = np.zeros(W)
+            grid_k = 1
+            for w, tl in enumerate(timelines):
+                m = int(m_true[w])
+                ends[w, :m] = tl.ends
+                bounds[w, 0] = 0.0
+                bounds[w, 1:m + 1] = tl.ends
+                if D == 1:
+                    eint[w, 1:m + 1] = tl.energy_integral()
+                    powers[w, :m] = tl.powers
+                else:
+                    eint[w, :, 1:m + 1] = tl.rail_energy_integral().T
+                    powers[w, :, :m] = tl.rails().T
+                rids[w, :m] = tl.region_ids
+                cell[w] = tl.t_exec / G
+                # Same f64 products the lookup guard computes (g · cell),
+                # so grid[g] is exact for the comparisons the lookup
+                # performs.
+                pts = np.arange(G + 2, dtype=np.float64) * cell[w]
+                grid[w] = np.searchsorted(tl.ends, pts, side="right")
+                grid_k = max(grid_k, int(np.diff(grid[w]).max()))
+            if grid_k > _GRID_K_MAX:
+                grid_k = 0      # searchsorted route (see _count_le)
 
-        def put(a):
-            return torch.from_numpy(a).to(dev)
-        return cls(ends=put(ends), bounds=put(bounds), eint=put(eint),
-                   powers=put(powers), region_ids=put(rids),
-                   m_true=put(m_true), grid=put(grid), cell=put(cell),
-                   grid_k=grid_k,
+        host = dict(ends=ends, bounds=bounds, eint=eint, powers=powers,
+                    region_ids=rids, m_true=m_true, grid=grid, cell=cell)
+        with spans.span("alea.upload.copy"):
+            spans.count("upload_bytes",
+                        sum(a.nbytes for a in host.values()))
+            put = {k: torch.from_numpy(a).to(dev) for k, a in host.items()}
+        return cls(**put, grid_k=grid_k,
                    t_end=float(min(tl.t_exec for tl in timelines)),
                    num_regions=len(names), names=names, domains=domains)
 
@@ -481,15 +488,19 @@ def _chunk_samples(dtl: DeviceTimeline, spec: SensorSpec, root, u0: float,
     """
     arrs = dtl.arrays()
     ends, bounds, eint, powers, rids, m_true, grid, cell = arrs
-    t_raw = _raw_chunk_times(root, u0, k, c, period, jitter, dtl.device)
-    valid = t_raw < dtl.t_end
-    t = torch.clamp_max(t_raw, dtl.t_end)
-    cnt = _count_le(ends, grid, cell, t, dtl.grid_k)
-    rid_mat = torch.gather(rids, 1, _interval(cnt, m_true))
-    pows, prev = _sensor_powers(spec, arrs, t, cnt, valid, prev, dtl.grid_k)
-    chan = pows[0] if pows.shape[0] == 1 else pows.sum(dim=0)
-    if chan.ndim == 2:
-        chan = torch.cat([chan, chan.sum(dim=0, keepdim=True)])
+    with spans.span("alea.clock"):
+        t_raw = _raw_chunk_times(root, u0, k, c, period, jitter, dtl.device)
+        valid = t_raw < dtl.t_end
+        t = torch.clamp_max(t_raw, dtl.t_end)
+    with spans.span("alea.lookup"):
+        cnt = _count_le(ends, grid, cell, t, dtl.grid_k)
+        rid_mat = torch.gather(rids, 1, _interval(cnt, m_true))
+    with spans.span("alea.sensor"):
+        pows, prev = _sensor_powers(spec, arrs, t, cnt, valid, prev,
+                                    dtl.grid_k)
+        chan = pows[0] if pows.shape[0] == 1 else pows.sum(dim=0)
+        if chan.ndim == 2:
+            chan = torch.cat([chan, chan.sum(dim=0, keepdim=True)])
     return rid_mat, chan, valid, prev
 
 
@@ -543,10 +554,11 @@ def _region_step(carry, prev, dtl: DeviceTimeline, spec: SensorSpec,
     counts, psum, psumsq, n = carry
     rid_mat, chan, valid, prev = _chunk_samples(
         dtl, spec, root, u0, k, chunk_size, period, jitter, prev)
-    if frac > 0.0:
-        chan = _blend_idle(chan, frac, idle_power, idle_ch)
-    update(counts, psum, psumsq, rid_mat[0], chan, valid)
-    n += valid.sum()
+    with spans.span("alea.fold"):
+        if frac > 0.0:
+            chan = _blend_idle(chan, frac, idle_power, idle_ch)
+        update(counts, psum, psumsq, rid_mat[0], chan, valid)
+        n += valid.sum()
     return carry, prev
 
 
@@ -570,25 +582,31 @@ def run_region_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
                          f"W={dtl.num_workers} (use run_combo_pipeline)")
     frac = min(overhead_per_sample / period, 1.0) \
         if overhead_per_sample > 0.0 else 0.0
-    dev = dtl.device
-    R = dtl.num_regions
-    update = make_carry_update(R)
-    idle_ch = idle_channel(spec.domains)
-    carry = (*_zero_carry(R, num_channels(spec.num_domains), dev),
-             torch.zeros((), dtype=torch.int64, device=dev))
-    prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
-    root = threefry.PRNGKey(seed)
-    u0 = _phase(root, period)
-    for k in range(num_chunks(dtl.t_end, period, chunk_size)):
-        carry, prev = _region_step(carry, prev, dtl, spec, update, root, u0,
-                                   k, chunk_size, period, jitter, frac,
-                                   idle_power, idle_ch)
-    counts, psum, psumsq, n = carry
-    n = int(n)
+    with spans.record("region", seed=seed, workers=1,
+                      chunk_size=chunk_size), \
+            spans.span("alea.pipeline", ranged=False):
+        dev = dtl.device
+        R = dtl.num_regions
+        update = make_carry_update(R)
+        idle_ch = idle_channel(spec.domains)
+        carry = (*_zero_carry(R, num_channels(spec.num_domains), dev),
+                 torch.zeros((), dtype=torch.int64, device=dev))
+        prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
+        root = threefry.PRNGKey(seed)
+        u0 = _phase(root, period)
+        for k in range(num_chunks(dtl.t_end, period, chunk_size)):
+            spans.count("chunks")
+            carry, prev = _region_step(carry, prev, dtl, spec, update, root,
+                                       u0, k, chunk_size, period, jitter,
+                                       frac, idle_power, idle_ch)
+        counts, psum, psumsq, n = carry
+        with spans.span("alea.readback"):
+            n = int(n)
+            counts, psum, psumsq = (a.cpu().numpy()
+                                    for a in (counts, psum, psumsq))
     if n == 0:
         raise ValueError("run too short for sampling period")
-    return _result_from_channels(counts.cpu().numpy(), psum.cpu().numpy(),
-                                 psumsq.cpu().numpy(), n,
+    return _result_from_channels(counts, psum, psumsq, n,
                                  dtl.t_end + n * overhead_per_sample,
                                  dtl.domains)
 
@@ -771,14 +789,18 @@ def _combo_step(carry, prev, table: _ComboTable, dtl: DeviceTimeline,
     counts, psum, psumsq, n = carry
     rid_mat, chan, valid, prev = _chunk_samples(
         dtl, spec, root, u0, k, chunk_size, period, jitter, prev)
-    ids, found = table.lookup(rid_mat)
-    # Any in-horizon row missing from the table aborts the device
-    # fold for the WHOLE chunk, so no sample is ever half-counted.
-    any_miss = (valid & ~found).any()
-    fold = valid & found & ~any_miss
-    sample_attr_fold(counts, psum, psumsq, ids, chan, fold)
-    n += fold.sum()
-    return carry, prev, bool(any_miss)
+    with spans.span("alea.search"):
+        ids, found = table.lookup(rid_mat)
+        # Any in-horizon row missing from the table aborts the device
+        # fold for the WHOLE chunk, so no sample is ever half-counted.
+        any_miss = (valid & ~found).any()
+        fold = valid & found & ~any_miss
+    with spans.span("alea.fold"):
+        sample_attr_fold(counts, psum, psumsq, ids, chan, fold)
+        n += fold.sum()
+    with spans.span("alea.miss_flag"):
+        miss = bool(any_miss)
+    return carry, prev, miss
 
 
 def _combo_fold(carry, idx, pows, valid):
@@ -787,8 +809,9 @@ def _combo_fold(carry, idx, pows, valid):
     horizon) and channel powers ``pows`` folded into ``carry`` = (counts,
     Σpow, Σpow², n) in place; returns it."""
     counts, psum, psumsq, n = carry
-    sample_attr_fold(counts, psum, psumsq, idx, pows, valid)
-    n += valid.sum()
+    with spans.span("alea.fold"):
+        sample_attr_fold(counts, psum, psumsq, idx, pows, valid)
+        n += valid.sum()
     return carry
 
 
@@ -823,8 +846,10 @@ def run_combo_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
 
     Returns ``(aggregator, n_samples)``; ``stats``, if given, records
     ``chunks``, ``miss_chunks`` and ``miss_seconds`` (host wall time in
-    the miss path, which queues the miss fold but does not wait for it)
-    plus, in bounded mode, ``tail_folds``.
+    the miss path, which queues the miss fold but does not wait for it:
+    the ``alea.miss`` span of the profile's :mod:`~repro_torch.core.spans`
+    record) plus, in bounded mode, ``tail_folds``: this call's share of
+    the record, if one was open around it.
     :func:`reference_combo_pipeline` is the numpy mirror.
     """
     _check_sampling_args(spec, period, jitter)
@@ -839,13 +864,32 @@ def run_combo_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
                 "bounded combination attribution needs >= 2 workers (the "
                 "region axis plus at least one folded axis); at W=1 use "
                 "the region pipeline")
+    counted = ("chunks", "miss_chunks") + (
+        () if max_combinations is None else ("tail_folds",))
+    with spans.record("combination", seed=seed, workers=W,
+                      chunk_size=chunk_size), \
+            spans.fill_stats(stats, counters=counted,
+                             seconds=dict(miss_seconds="alea.miss")), \
+            spans.span("alea.pipeline", ranged=False):
+        agg, n = _combo_chunks(dtl, spec, period, jitter, seed, chunk_size,
+                               max_combinations)
+    if n == 0:
+        raise ValueError("run too short for sampling period")
+    return agg, n
+
+
+def _combo_chunks(dtl: DeviceTimeline, spec: SensorSpec, period: float,
+                  jitter: float, seed: int, chunk_size: int,
+                  max_combinations: int | None):
+    """The chunk loop, read-back and table of :func:`run_combo_pipeline`:
+    ``(aggregator, n)``, the aggregator None when no sample was taken."""
+    W = dtl.num_workers
     dev = dtl.device
     n_chan = num_channels(dtl.num_domains)
     pack = _pack_spec(dtl.num_regions, W)
     interner = CombinationInterner()
     other_by_region: dict[int, int] = {}
-    miss_chunks = tail_folds = 0
-    miss_seconds = 0.0
+    tail_folds = 0
     cap = _TABLE_MIN
     table = _build_table(interner, cap, pack, dev)
     carry = (*_zero_carry(cap, n_chan, dev),
@@ -853,56 +897,51 @@ def run_combo_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
     prev = torch.full((), -1.0, dtype=torch.float64, device=dev)
     root = threefry.PRNGKey(seed)
     u0 = _phase(root, period)
-    k_chunks = num_chunks(dtl.t_end, period, chunk_size)
-    for k in range(k_chunks):
+    for k in range(num_chunks(dtl.t_end, period, chunk_size)):
+        spans.count("chunks")
         prev_in = prev      # never written in place: the replay's start
         carry, prev, miss = _combo_step(carry, prev, table, dtl, spec, root,
                                         u0, k, chunk_size, period, jitter)
         if not miss:
             continue
-        miss_chunks += 1
-        # audit: allow(no-wallclock) host time of the miss path, reported
-        # in stats only: no time read here reaches a sample
-        t_miss = time.perf_counter()
-        rid_mat, chan, valid, _ = _chunk_samples(
-            dtl, spec, root, u0, k, chunk_size, period, jitter, prev_in)
-        valid_h = valid.cpu().numpy()
-        rows = rid_mat.cpu().numpy().T[valid_h].astype(np.int64)
-        if max_combinations is None:
-            cids = interner.encode(rows)
-        else:
-            cids, folded = _admit_or_fold(rows, interner, other_by_region,
-                                          max_combinations, W)
-            tail_folds += folded
-        if len(interner) > cap:
-            new_cap = _table_cap(len(interner))
-            pad = _zero_carry(new_cap - cap, n_chan, dev)
-            carry = (*(torch.cat([a, b]) for a, b in zip(carry, pad)),
-                     carry[3])
-            cap = new_cap
-        table = _build_table(interner, cap, pack, dev)
-        idx = np.full(chunk_size, cap, np.int32)
-        idx[valid_h] = cids
-        carry = _combo_fold(carry, torch.from_numpy(idx).to(dev), chan,
-                            valid)
-        # audit: allow(no-wallclock) see t_miss above
-        miss_seconds += time.perf_counter() - t_miss
+        spans.count("miss_chunks")
+        with spans.span("alea.miss"):
+            rid_mat, chan, valid, _ = _chunk_samples(
+                dtl, spec, root, u0, k, chunk_size, period, jitter, prev_in)
+            valid_h = valid.cpu().numpy()
+            rows = rid_mat.cpu().numpy().T[valid_h].astype(np.int64)
+            spans.count("miss_rows", len(rows))
+            if max_combinations is None:
+                cids = interner.encode(rows)
+            else:
+                cids, folded = _admit_or_fold(rows, interner,
+                                              other_by_region,
+                                              max_combinations, W)
+                tail_folds += folded
+                spans.count("tail_folds", folded)
+            if len(interner) > cap:
+                new_cap = _table_cap(len(interner))
+                pad = _zero_carry(new_cap - cap, n_chan, dev)
+                carry = (*(torch.cat([a, b]) for a, b in zip(carry, pad)),
+                         carry[3])
+                cap = new_cap
+            table = _build_table(interner, cap, pack, dev)
+            idx = np.full(chunk_size, cap, np.int32)
+            idx[valid_h] = cids
+            carry = _combo_fold(carry, torch.from_numpy(idx).to(dev), chan,
+                                valid)
     counts, psum, psumsq, n = carry
-    n = int(n)
-    if stats is not None:
-        stats["chunks"] = k_chunks
-        stats["miss_chunks"] = miss_chunks
-        stats["miss_seconds"] = miss_seconds
-        if max_combinations is not None:
-            stats["tail_folds"] = tail_folds
-    if n == 0:
-        raise ValueError("run too short for sampling period")
     k_combos = len(interner)
-    counts, psum, psumsq = (a[:k_combos].cpu().numpy()
-                            for a in (counts, psum, psumsq))
-    agg = StreamingCombinationAggregator.from_table(
-        interner.combo_matrix(), counts, psum, psumsq,
-        domains=dtl.domains, k=max_combinations)
+    with spans.span("alea.readback"):
+        n = int(n)
+        counts, psum, psumsq = (a[:k_combos].cpu().numpy()
+                                for a in (counts, psum, psumsq))
+    if n == 0:
+        return None, n
+    with spans.span("alea.estimate"):
+        agg = StreamingCombinationAggregator.from_table(
+            interner.combo_matrix(), counts, psum, psumsq,
+            domains=dtl.domains, k=max_combinations)
     if max_combinations is not None:
         # from_table re-counts nothing; carry the pipeline's fold
         # provenance so tail_info() discloses what happened on device.

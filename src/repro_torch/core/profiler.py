@@ -16,6 +16,15 @@ Usage, host mode (a real control thread on this machine):
 ``device`` names where the device pipeline runs: ``"cuda"`` (the
 default) or ``"cpu"`` (the plain PyTorch path the CPU tests use). Asking
 for the GPU where torch sees none raises.
+
+Where the profiler's own time went: after a profile through the device
+pipeline, ``prof.last_trace`` is its record
+(:class:`~repro_torch.core.spans.ProfileTrace`): the seconds of each
+stage (upload, clock, lookup, sensor, search, fold, miss path, read-back,
+estimates) and the counters:
+
+    est = prof.profile_timeline_streaming(timeline, pipeline="device")
+    print(prof.last_trace.by_name())
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 
 from repro_torch.convert import resolve_device
 from repro_torch.core import regions as regions_mod
+from repro_torch.core import spans
 from repro_torch.core.attribution import AttributionReport
 from repro_torch.core.estimator import (AggregateFn, EstimateSet,
                                         estimate_combinations,
@@ -117,7 +127,13 @@ class HostSession:
 
 
 class EnergyProfiler:
-    """Fine-grain energy profiler with systematic sampling."""
+    """Fine-grain energy profiler with systematic sampling.
+
+    ``last_trace`` is the :class:`~repro_torch.core.spans.ProfileTrace` of
+    this profiler's newest profile through the device pipeline (None
+    before one): the spans and counters of ALEA's own work, the
+    operator's view of what profiling costs beside the profiled program.
+    """
 
     def __init__(self, *, period: float = 10e-3, jitter: float = 200e-6,
                  alpha: float = 0.05, seed: int = 0, device="cuda"):
@@ -128,6 +144,7 @@ class EnergyProfiler:
         self.alpha = alpha
         self.seed = seed
         self.device = resolve_device(device)
+        self.last_trace: spans.ProfileTrace | None = None
 
     # -- timeline mode (numpy, one-shot) -------------------------------------
     def profile_timeline(self, tl: Timeline, *, sensor: str = "rapl",
@@ -183,6 +200,17 @@ class EnergyProfiler:
             return False
         return True
 
+    @contextlib.contextmanager
+    def _device_trace(self, path: str, seed: int, workers: int,
+                      chunk_size: int):
+        """The record of one profile through the device pipeline, with its
+        ``alea.profile`` span; kept as :attr:`last_trace`."""
+        with spans.record(path, seed=seed, workers=workers,
+                          chunk_size=chunk_size) as trace, \
+                spans.span("alea.profile", ranged=False):
+            self.last_trace = trace
+            yield
+
     def profile_timeline_streaming(self, tl: Timeline, *,
                                    sensor: str = "rapl",
                                    chunk_size: int = 65536,
@@ -204,20 +232,24 @@ class EnergyProfiler:
         use_seed = self.seed if seed is None else seed
         if self._resolve_pipeline(pipeline, aggregate_fn):
             from repro_torch.core import device_pipeline as dp
-            res = dp.run_region_pipeline(
-                tl.to_device(device=self.device),
-                _SENSORS[sensor].make_spec(domains=tl.domain_names),
-                period=self.period, jitter=self.jitter, seed=use_seed,
-                chunk_size=chunk_size,
-                overhead_per_sample=overhead_per_sample)
-            agg = StreamingAggregator.from_statistics(
-                res.counts,
-                res.psum if tl.num_domains == 1 else np.concatenate(
-                    [res.rail_psum, res.psum[:, None]], axis=1),
-                res.psumsq if tl.num_domains == 1 else np.concatenate(
-                    [res.rail_psumsq, res.psumsq[:, None]], axis=1),
-                domains=tl.domain_names)
-            return agg.estimates(res.t_exec, tl.names, alpha=self.alpha)
+            with self._device_trace("region", use_seed, 1, chunk_size):
+                res = dp.run_region_pipeline(
+                    tl.to_device(device=self.device),
+                    _SENSORS[sensor].make_spec(domains=tl.domain_names),
+                    period=self.period, jitter=self.jitter, seed=use_seed,
+                    chunk_size=chunk_size,
+                    overhead_per_sample=overhead_per_sample)
+                with spans.span("alea.estimate"):
+                    agg = StreamingAggregator.from_statistics(
+                        res.counts,
+                        res.psum if tl.num_domains == 1 else np.concatenate(
+                            [res.rail_psum, res.psum[:, None]], axis=1),
+                        res.psumsq if tl.num_domains == 1 else
+                        np.concatenate([res.rail_psumsq,
+                                        res.psumsq[:, None]], axis=1),
+                        domains=tl.domain_names)
+                    return agg.estimates(res.t_exec, tl.names,
+                                         alpha=self.alpha)
         sens = _SENSORS[sensor](tl)
         agg = StreamingAggregator(len(tl.names), aggregate_fn=aggregate_fn,
                                   domains=tl.domain_names)
@@ -271,26 +303,32 @@ class EnergyProfiler:
         (``PhaseEnergyAccountant``, direct ``restore_shard``).
         """
         use_seed = self.seed if seed is None else seed
-        if self._resolve_pipeline(pipeline, aggregate_fn):
-            from repro_torch.core import device_pipeline as dp
-            dtl = dp.DeviceTimeline.from_timelines(timelines,
-                                                   device=self.device)
-            agg, _n = dp.run_combo_pipeline(
-                dtl, _SENSORS[sensor].make_spec(domains=dtl.domains),
-                period=self.period, jitter=self.jitter, seed=use_seed,
-                chunk_size=chunk_size)
-        else:
-            agg = StreamingCombinationAggregator(
-                aggregate_fn=aggregate_fn,
-                domains=timelines[0].domain_names)
-            agg.update_stream(iter_multiworker_chunks(
-                timelines, lambda tl: _SENSORS[sensor](tl),
-                period=self.period, jitter=self.jitter,
-                seed=use_seed, chunk_size=chunk_size))
-        if exchange is not None:
-            agg = exchange.reduce(agg)
-        t_end = min(tl.t_exec for tl in timelines)
-        return agg.estimates(t_end, timelines[0].names, alpha=self.alpha)
+        device = self._resolve_pipeline(pipeline, aggregate_fn)
+        with (self._device_trace("combination", use_seed, len(timelines),
+                                 chunk_size)
+              if device else contextlib.nullcontext()):
+            if device:
+                from repro_torch.core import device_pipeline as dp
+                dtl = dp.DeviceTimeline.from_timelines(timelines,
+                                                       device=self.device)
+                agg, _n = dp.run_combo_pipeline(
+                    dtl, _SENSORS[sensor].make_spec(domains=dtl.domains),
+                    period=self.period, jitter=self.jitter, seed=use_seed,
+                    chunk_size=chunk_size)
+            else:
+                agg = StreamingCombinationAggregator(
+                    aggregate_fn=aggregate_fn,
+                    domains=timelines[0].domain_names)
+                agg.update_stream(iter_multiworker_chunks(
+                    timelines, lambda tl: _SENSORS[sensor](tl),
+                    period=self.period, jitter=self.jitter,
+                    seed=use_seed, chunk_size=chunk_size))
+            if exchange is not None:
+                agg = exchange.reduce(agg)
+            t_end = min(tl.t_exec for tl in timelines)
+            with spans.span("alea.estimate"):
+                return agg.estimates(t_end, timelines[0].names,
+                                     alpha=self.alpha)
 
     # -- host (this machine) mode --------------------------------------------
     def host_session(self, *, jit_marking: bool = False,

@@ -37,7 +37,8 @@ from repro_torch.analysis.passes import (FaultSiteHygienePass,
                                          NoSilentExceptPass, NoWallclockPass,
                                          TypedSpillErrorsPass, X64ScopingPass,
                                          parse_unit, run_passes)
-from repro_torch.analysis.torch_passes import DefaultDtypeScopingPass
+from repro_torch.analysis.torch_passes import (DefaultDtypeScopingPass,
+                                               NoSpanReadsPass)
 
 ROOT = Path(__file__).resolve().parents[1]
 REF_ANALYSIS = ROOT / "src" / "repro" / "analysis"
@@ -411,6 +412,58 @@ def test_default_dtype_pass_is_registered():
     from repro_torch.analysis import PASS_REGISTRY
     assert "default-dtype-scoping" in PASS_REGISTRY
     assert "x64-scoping" in PASS_REGISTRY
+
+
+# ---------------------------------------------------------------------------
+# pass (g): no-span-reads (the profile record's clock stays write-only)
+# ---------------------------------------------------------------------------
+
+def test_span_reads_caught():
+    bad = """\
+        from repro_torch.core import spans
+        from repro_torch.core.spans import recent
+        import repro_torch.core.spans as sp
+
+        def run(prof, stats):
+            with spans.record("region", seed=0, workers=1,
+                              chunk_size=8) as trace:
+                pass
+            stats["s"] = trace.seconds("alea.miss")
+            last = recent()[-1]
+            cur = sp._current.get()
+            if prof.last_trace.counters["chunks"]:
+                return spans.ProfileTrace
+    """
+    idents = [f.ident for f in _scan(bad, passes=[NoSpanReadsPass()])]
+    assert sorted(idents) == sorted([
+        "repro_torch.core.spans.record", "repro_torch.core.spans.recent",
+        "repro_torch.core.spans._current", "last_trace",
+        "repro_torch.core.spans.ProfileTrace"])
+    # Only determinism-critical modules are held to it.
+    assert _scan(bad, modpath="core/profiler.py",
+                 passes=[NoSpanReadsPass()]) == []
+
+
+def test_span_writes_pass():
+    clean = """\
+        from repro_torch.core import spans
+
+        def run(stats, n):
+            with spans.record("combination", seed=0, workers=2,
+                              chunk_size=8), \\
+                    spans.fill_stats(stats, counters=("chunks",)), \\
+                    spans.span("alea.pipeline", ranged=False):
+                for _ in range(n):
+                    spans.count("chunks")
+                    with spans.span("alea.clock"):
+                        pass
+    """
+    assert _scan(clean, passes=[NoSpanReadsPass()]) == []
+
+
+def test_no_span_reads_pass_is_registered():
+    from repro_torch.analysis import PASS_REGISTRY
+    assert PASS_REGISTRY["no-span-reads"] is NoSpanReadsPass
 
 
 # ---------------------------------------------------------------------------
