@@ -333,7 +333,8 @@ def launch_counters():
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.sample_attr.ops import sample_attr_fold
-    return (sample_attr_fold, flash_attention, rmsnorm)
+    from repro_torch.kernels.sample_clock.ops import sample_clock
+    return (sample_attr_fold, sample_clock, flash_attention, rmsnorm)
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +474,7 @@ def sharding_phase(dev):
         _, sharded_ms2 = timed(sharded)
     bitwise = torch.equal(got, want)
     rel = _max_rel(got, want)
-    check(launches == {"sample_attr_fold": 0,
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
                        "flash_attention": cfg.n_layers, "rmsnorm": 0},
           f"sharding (a): launches in the sharded prefill {launches}")
     check(tuple(got.shape) == (B, 1, cfg.vocab_size)
@@ -978,19 +979,60 @@ def rmsnorm_phase(dev):
 # ---------------------------------------------------------------------------
 
 
+# (seed, k, c, period, jitter): the CPU tests' cases at the benchmark's
+# RAPL rate, chip_smoke's earlier ones at 10 µs, a lane count that is no
+# multiple of the kernel's block, k·c past 2^32 (t·1e9 near 2^53 at
+# k = 2^24, where the fused multiply-adds matter) and no jitter.
+CLOCK_CASES = [(0, 0, 1024, 1e-3, 2e-4), (3, 7, 4096, 1e-3, 2e-4),
+               (11, 0, 65536, 1e-3, 2e-4), (2 ** 33 + 5, 2, 777, 1e-3, 2e-4),
+               (1, 40000, 65536, 1e-3, 2e-4), (5, 2 ** 24, 65536, 1e-3, 2e-4),
+               (0, 0, 65536, 1e-5, 2e-6), (7, 1525, 65536, 1e-5, 2e-6),
+               (3, 123456, 65536, 1e-5, 2e-6), (5, 2 ** 24, 4096, 1e-5, 2e-6),
+               (9, 70000, 65613, 1e-3, 2e-4), (4, 3, 1000, 1e-3, 0.0),
+               (2 ** 40 + 3, 2 ** 24, 65536, 1e-3, 0.0)]
+
+
 def clock_phase():
+    """The sample_clock kernel against the CPU's torch operations, bit for
+    bit: the raw times of every case and, with a t_end inside the chunk,
+    the fused tail (valid, clamped times) against the CPU's and against
+    the torch expressions on the card's raw times. One launch a call."""
     import torch
     from repro_torch.core import device_pipeline as dp, threefry
-    for seed, k, c in ((0, 0, 65536), (7, 1525, 65536), (3, 123456, 65536),
-                       (5, 2 ** 24, 4096)):
-        a = dp.chunk_sample_times(threefry.PRNGKey(seed), k, 1e-5, 2e-6,
-                                  chunk_size=c, device="cpu")
-        b = dp.chunk_sample_times(threefry.PRNGKey(seed), k, 1e-5, 2e-6,
-                                  chunk_size=c, device="cuda").cpu()
-        check(torch.equal(a.view(torch.int64), b.view(torch.int64)),
-              f"clock seed={seed} k={k}: GPU times equal CPU times")
-    log("clock: GPU sample times equal the CPU's bit for bit "
-        "(4 (seed, k) cases)")
+    from repro_torch.kernels.sample_clock.ops import sample_clock
+
+    def bits(t):
+        return t.cpu().view(torch.int64)
+
+    for seed, k, c, period, jitter in CLOCK_CASES:
+        what = f"clock seed={seed} k={k} c={c} jitter={jitter:g}"
+        root = threefry.PRNGKey(seed)
+        u0 = dp._phase(root, period)
+        a = dp.chunk_sample_times(root, k, period, jitter, chunk_size=c,
+                                  device="cpu")
+        before = sample_clock.launches
+        b = dp.chunk_sample_times(root, k, period, jitter, chunk_size=c,
+                                  device="cuda")
+        check(torch.equal(bits(a), bits(b)),
+              f"{what}: GPU times equal CPU times")
+        t_end = float(a.median())
+        ta, va = dp._raw_chunk_times(root, u0, k, c, period, jitter, "cpu",
+                                     t_end)
+        tb, vb = dp._raw_chunk_times(root, u0, k, c, period, jitter, "cuda",
+                                     t_end)
+        check(sample_clock.launches - before == 2,
+              f"{what}: one kernel launch a call")
+        check(torch.equal(bits(ta), bits(tb))
+              and torch.equal(va, vb.cpu()),
+              f"{what}: fused tail equals the CPU's")
+        check(torch.equal(vb, b < t_end)
+              and torch.equal(bits(tb), bits(torch.clamp_max(b, t_end))),
+              f"{what}: fused tail equals the torch expressions")
+        check(0 < int(va.sum()) < c or c < 2,
+              f"{what}: t_end splits the chunk")
+    log(f"clock: sample_clock kernel times equal the CPU's bit for bit, "
+        f"raw and with the fused tail ({len(CLOCK_CASES)} (seed, k, c) "
+        f"cases, k·c up to {max(k * c for _, k, c, _, _ in CLOCK_CASES)})")
 
 
 def parity_timeline(domains, seed=2):
@@ -1287,6 +1329,7 @@ def full_phase(tl):
     from repro_torch.core import device_pipeline as dp
     from repro_torch.core.profiler import EnergyProfiler
     from repro_torch.kernels.sample_attr import ops
+    from repro_torch.kernels.sample_clock.ops import sample_clock
     target = 102_000_000
     period = tl.t_exec / target
     jitter = 0.2 * period
@@ -1306,8 +1349,9 @@ def full_phase(tl):
                                               pipeline="device")
         secs = time.perf_counter() - t0
     launches = ops.sample_attr_fold.launches
+    clocks = sample_clock.launches
     others = {c.__name__: c.launches for c in counters
-              if c is not ops.sample_attr_fold}
+              if c not in (ops.sample_attr_fold, sample_clock)}
     peak = torch.cuda.max_memory_allocated()
     n = int(est.n_total)
     # Every sample i lies in [i·T, i·T + T + jitter): all i with
@@ -1319,6 +1363,8 @@ def full_phase(tl):
     check(n >= 100_000_000, "full: >= 10^8 samples")
     check(launches == n_chunks,
           f"full: sample_attr launches {launches} == chunks {n_chunks}")
+    check(clocks == n_chunks,
+          f"full: sample_clock launches {clocks} == chunks {n_chunks}")
     check(not any(others.values()), f"full: other kernels launched {others}")
     check(bool((est.table.pow_hat > 0).all()) and all(
         bool(torch.isfinite(torch.as_tensor(getattr(est.table, f))).all())
@@ -1397,6 +1443,26 @@ def log_stages(tag, trace):
            else ""))
 
 
+def clock_row(ch):
+    """The sample_clock kernel's device time on chunk ``ch`` (the full
+    cell's k = 700, c = 65536, with the fused tail) beside its bound (9 B
+    written a lane against HBM bandwidth: it reads nothing) and the device
+    time of its plain version's kernels on the card."""
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels.sample_clock.ops import sample_clock
+    from repro_torch.kernels.sample_clock.ref import sample_clock_ref
+    dev = ch.dtl.device
+    args = (ch.root, ch.k, ch.c, ch.period, ch.u0, ch.jitter, ch.dtl.t_end)
+    ms, _ = device_ms(lambda: sample_clock(*args, device=dev),
+                      match=("sc_clock",), iters=100)
+    plain_ms, plain = device_ms(lambda: sample_clock_ref(*args, device=dev))
+    bound_ms = ch.c * 9 / H100_SXM.hbm_bandwidth * 1e3
+    log(f"clock kernel: sample_clock on chunk k={ch.k} (c={ch.c}, fused "
+        f"tail): device {_fmt(ms)} ms, bound {bound_ms:.6f} ms (bytes), "
+        f"plain version {_fmt(plain_ms)} ms of device time in "
+        f"{len(plain)} kernel names")
+
+
 def breakdown_phase(tl):
     """The fold on the full cell's own chunk (k = 700: the ids, channels
     and mask the main path launches it with), held and timed by
@@ -1414,6 +1480,7 @@ def breakdown_phase(tl):
     period, jitter, prev = ch.period, ch.jitter, ch.prev
     R, C = ch.R, ch.C
     row = fold_row(f"full chunk k={k}", R, C, ch.ids, ch.pows, ch.valid)
+    clock_row(ch)
     carry = fresh_carry(R, C, dev)
 
     def chunk():
@@ -1548,6 +1615,7 @@ def combo_full_phase(tl):
     import torch
     from repro_torch.core import device_pipeline as dp, sensors, spans
     from repro_torch.kernels.sample_attr import ops
+    from repro_torch.kernels.sample_clock.ops import sample_clock
     period = tl.t_exec / COMBO_SAMPLES
     jitter = 0.2 * period
     chunk = 65536
@@ -1572,8 +1640,9 @@ def combo_full_phase(tl):
                                        chunk_size=chunk, stats=stats)
     secs = time.perf_counter() - t0
     launches = ops.sample_attr_fold.launches
+    clocks = sample_clock.launches
     others = {c.__name__: c.launches for c in counters
-              if c is not ops.sample_attr_fold}
+              if c not in (ops.sample_attr_fold, sample_clock)}
     peak = torch.cuda.max_memory_allocated()
     est, rows = agg.estimates(dtl.t_end, tl.names)
     distinct = len(agg.interner)
@@ -1590,6 +1659,9 @@ def combo_full_phase(tl):
     check(launches == chunks + misses,
           f"combo-full: sample_attr launches {launches} == chunks {chunks} "
           f"+ miss chunks {misses}")
+    check(clocks == chunks + misses,
+          f"combo-full: sample_clock launches {clocks} == chunks {chunks} "
+          f"+ miss replays {misses}")
     check(not any(others.values()),
           f"combo-full: other kernels launched {others}")
     check(misses < chunks / 2, f"combo-full: {misses} of {chunks} chunks "
@@ -1982,6 +2054,9 @@ def energy_phase(dev):
     check(coarse["sample_attr_fold"] == chunks,
           f"energy (a): sample_attr launches {coarse['sample_attr_fold']} "
           f"== chunks {chunks}")
+    check(coarse["sample_clock"] == chunks,
+          f"energy (a): sample_clock launches {coarse['sample_clock']} "
+          f"== chunks {chunks}")
     check(card.n_total == cpu.n_total, "energy (a): n")
     got = card_aggs[0].channel_statistics()
     want = cpu_aggs[0].channel_statistics()
@@ -2010,8 +2085,10 @@ def energy_phase(dev):
         runs.append(dict(n=est.n_total, seconds=s, agg=aggs[0],
                          launches={c.__name__: c.launches
                                    for c in counters}))
-    check(all(r["launches"]["sample_attr_fold"] == fine_chunks for r in runs),
-          f"energy (b): sample_attr launches == chunks {fine_chunks}")
+    check(all(r["launches"]["sample_attr_fold"] == fine_chunks
+              == r["launches"]["sample_clock"] for r in runs),
+          f"energy (b): sample_attr and sample_clock launches == chunks "
+          f"{fine_chunks}")
     check(_agg_bits_equal(runs[0]["agg"], runs[1]["agg"]),
           "energy (b): two card runs bitwise equal")
     log(f"energy (b): {runs[0]['n']} samples at "
@@ -2157,12 +2234,13 @@ def recompile_guard(dev, served):
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.sample_attr import ops as sops
+    from repro_torch.kernels.sample_clock import ops as cops
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.serve.engine import (Engine, Request, ServeConfig,
                                           _spec_step_fns, _step_fns)
-    for name, mod in (("sample_attr", sops), ("flash_attention", fops),
-                      ("rmsnorm", rops)):
+    for name, mod in (("sample_attr", sops), ("sample_clock", cops),
+                      ("flash_attention", fops), ("rmsnorm", rops)):
         info = mod._kernel.cache_info()
         log(f"analysis (c): {name} library loads: {info.misses} "
             f"(calls {info.hits + info.misses})")
@@ -2246,6 +2324,10 @@ def analysis_phase(dev, served):
             check(r.donated_expected == 4, f"analysis (b): {r.render()}")
             check(r.launches.get("sample_attr_fold", 0) >= 1,
                   f"analysis (b): {r.name} did not launch sample_attr")
+            clocks = 0 if "/combo_fold/" in r.name else 1
+            check(r.launches.get("sample_clock", 0) == clocks,
+                  f"analysis (b): {r.name}: sample_clock launches "
+                  f"{r.launches.get('sample_clock', 0)} != {clocks}")
         if "/region_run/" in r.name or "/combo_fold/" in r.name:
             check(r.host_callbacks == 0, f"analysis (b): {r.render()}")
         if "/combo_step/" in r.name:
@@ -2402,8 +2484,8 @@ def model_phase(dev, arch=MODEL_ARCH, *, depth=None, steps=MODEL_DECODE,
     check(after_prefill == cfg.n_layers,
           f"model {arch}: flash launches per prefill {after_prefill} == "
           f"{cfg.n_layers}")
-    check(launches == {"sample_attr_fold": 0, "flash_attention": cfg.n_layers,
-                       "rmsnorm": 0},
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+                       "flash_attention": cfg.n_layers, "rmsnorm": 0},
           f"model {arch}: launches in prefill + decode {launches}")
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
@@ -2569,8 +2651,9 @@ def audio_phase(dev):
         full, _ = M.forward(p, cfg, batch, attn_impl="full")
         loss = {impl: float(M.loss_fn(p, cfg, batch, attn_impl=impl)[0])
                 for impl in ("flash", "full")}
-    check(launches == {"sample_attr_fold": 0, "flash_attention": cfg.n_layers,
-                       "rmsnorm": 0}, f"audio: launches {launches}")
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+                       "flash_attention": cfg.n_layers, "rmsnorm": 0},
+          f"audio: launches {launches}")
     check(tuple(logits.shape) == (B, S, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()) and float(aux) == 0.0,
           "audio: forward logits")
@@ -2787,8 +2870,8 @@ def recurrent_model_phase(dev, arch):
 
     check(after_prefill == n_attn, f"model {arch}: flash launches per "
           f"prefill {after_prefill} == {n_attn}")
-    check(launches == {"sample_attr_fold": 0, "flash_attention": n_attn,
-                       "rmsnorm": 0},
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+                       "flash_attention": n_attn, "rmsnorm": 0},
           f"model {arch}: launches in prefill + decode {launches}")
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
@@ -3046,8 +3129,9 @@ def serve_phase(dev, arch=MODEL_ARCH, *, full=True):
           f"serve {arch}: {len(done)}/{SERVE_REQUESTS} requests served")
     check(n_tok == SERVE_REQUESTS * SERVE_NEW,
           f"serve {arch}: {n_tok} tokens out")
-    check(launches == {"sample_attr_fold": 0, "flash_attention": 0,
-                       "rmsnorm": 0}, f"serve {arch}: launches {launches}")
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+                       "flash_attention": 0, "rmsnorm": 0},
+          f"serve {arch}: launches {launches}")
     by = est.by_name()
     sampled = {n: by[n].n_samples for n in SERVE_INNER
                if n in by and by[n].n_samples}
@@ -3746,8 +3830,9 @@ def train_phase(dev, arch=MODEL_ARCH):
         check("train_step" in stored, f"{tag} (a): marker stores {stored}")
         check(not sampled, f"{tag} (a): samples in {sampled}")
         check(not inner_stored, f"{tag} (a): marker stored {inner_stored}")
-        check(launches == {"sample_attr_fold": 0, "flash_attention": 0,
-                           "rmsnorm": 0}, f"{tag} (a): launches {launches}")
+        check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+                           "flash_attention": 0, "rmsnorm": 0},
+              f"{tag} (a): launches {launches}")
         log(f"{tag} (a): launcher main: {arch} {n_params} parameters "
             f"(float32 masters), B={TRAIN_BATCH} S={TRAIN_SEQ}, "
             f"{TRAIN_STEPS} steps in {main_s:.3f} s (weights drawn "
@@ -3992,7 +4077,8 @@ def main():
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
-    names = ["sample_attr", "flash_attention", "rmsnorm", "stream_marker"]
+    names = ["sample_attr", "sample_clock", "flash_attention", "rmsnorm",
+             "stream_marker"]
     t0 = time.perf_counter()
     _build.build(names)
     log(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s "

@@ -36,10 +36,15 @@ asks for the CPU):
 
 Everything is float64/int64, so device lookups are bit-identical to the
 numpy oracle :func:`reference_region_pipeline`, which consumes the same
-:func:`chunk_sample_times`. Every product and sum of the clock is its own
-torch operation, so the GPU's times equal the CPU's bit for bit; the two
-fused multiply-adds the reference's XLA build puts in the clock are
-emulated exactly (:func:`_fma`).
+:func:`chunk_sample_times`. The clock has two routes that share no
+arithmetic (:mod:`repro_torch.kernels.sample_clock`), chosen by the
+device alone: on the CPU every product and sum is its own torch operation
+and the two fused multiply-adds the reference's XLA build puts in the
+clock are emulated exactly (``ref.py``); on a CUDA device one launch of
+the ``sample_clock`` kernel draws the same threefry bits on ``uint32``
+and takes the two products as hardware FMAs, with every other step one
+explicit rounding, so a chunk's times on the GPU equal the CPU's bit for
+bit.
 
 **Power-rail domain axis.** Multi-domain timelines carry per-rail energy
 integrals ``[W, D, ·]``; each rail applies the sensor's semantics to its
@@ -80,6 +85,7 @@ from repro_torch.core.streaming import (CombinationInterner,
 from repro_torch.core.timeline import Timeline
 from repro_torch.kernels.sample_attr.ops import (make_carry_update,
                                                  sample_attr_fold)
+from repro_torch.kernels.sample_clock.ops import sample_clock
 
 __all__ = [
     "DeviceTimeline", "PipelineResult", "chunk_sample_times",
@@ -289,60 +295,20 @@ def _result_from_channels(counts, chan_psum, chan_psumsq, n, t_exec,
 # ---------------------------------------------------------------------------
 
 
-_VELTKAMP = 134217729.0      # 2^27 + 1: splits a float64 into 26+27 bits
-
-
-def _split(x):
-    t = x * _VELTKAMP
-    hi = t - (t - x)
-    return hi, x - hi
-
-
-def _fma(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
-    """``a·b + c`` rounded once, from plain float64 operations only.
-
-    The reference's XLA CPU build contracts ``u0 + i·T`` and
-    ``t·1e9 + 0.5`` into fused multiply-adds, so the clock needs one
-    rounding in each, not two (at large sample indices the two differ in
-    a sizeable share of the nanosecond-quantized times); torch
-    promises no FMA on every device, so it is built from separate
-    roundings, each its own torch operation (bit-identical on the CPU and
-    the GPU): the exact product ``p + e`` (Dekker), the exact sum
-    ``p + c = s + r`` (Knuth), and the tail ``r + e`` rounded to odd, so
-    that the final ``s + tail`` rounds exactly as one FMA would.
-    """
-    p = a * b
-    ah, al = _split(a)
-    bh, bl = _split(b)
-    e = al * bl - (((p - ah * bh) - al * bh) - ah * bl)
-    s = p + c
-    z = s - p
-    r = (p - (s - z)) + (c - z)
-    v = r + e
-    z = v - r
-    w = (r - (v - z)) + (e - z)
-    even = (v.view(torch.int64) & 1) == 0
-    toward = torch.where(w > 0, math.inf, -math.inf).to(v.dtype)
-    v = torch.where((w != 0) & even, torch.nextafter(v, toward), v)
-    return s + v
-
-
 def _raw_chunk_times(root, u0: float, k: int, c: int, period: float,
-                     jitter: float, device) -> torch.Tensor:
+                     jitter: float, device, t_end: float | None = None):
     """Chunk ``k``'s sample times: pure function of (key, k).
 
     ``t_i = u0 + i·T + u_i`` on an integer-nanosecond clock; ``u0`` is the
-    run's phase draw (:func:`_phase`). ``k·c`` is a Python int, so sample
-    indices past 2^31 do not wrap. ``u0 + i·T`` and the quantization's
-    ``t·1e9 + 0.5`` are each one fused multiply-add (:func:`_fma`), as
-    XLA compiles the reference on the CPU; every other step is one
-    rounding, as there.
+    run's phase draw (:func:`_phase`), ``u_i`` is drawn under
+    ``fold_in(root, k + 1)``. ``k·c`` is a Python int, so sample indices
+    past 2^31 do not wrap. With ``t_end``, returns ``(t clamped to t_end,
+    t < t_end)``: the whole clock stage of a chunk. On a CUDA device this
+    is one launch of the ``sample_clock`` kernel; on the CPU the plain
+    torch operations of its ``ref.py``, which draw JAX's bits
+    (:func:`repro_torch.kernels.sample_clock.ops.sample_clock`).
     """
-    u = threefry.uniform(threefry.fold_in(root, k + 1), c, 0.0, jitter,
-                         device=device)
-    i = torch.arange(c, dtype=torch.int64, device=device) + k * c
-    t = _fma(i.to(torch.float64), period, u0) + u
-    return torch.floor(_fma(t, 1e9, 0.5)) * 1e-9
+    return sample_clock(root, k, c, period, u0, jitter, t_end, device=device)
 
 
 def _phase(root, period: float) -> float:
@@ -489,9 +455,8 @@ def _chunk_samples(dtl: DeviceTimeline, spec: SensorSpec, root, u0: float,
     arrs = dtl.arrays()
     ends, bounds, eint, powers, rids, m_true, grid, cell = arrs
     with spans.span("alea.clock"):
-        t_raw = _raw_chunk_times(root, u0, k, c, period, jitter, dtl.device)
-        valid = t_raw < dtl.t_end
-        t = torch.clamp_max(t_raw, dtl.t_end)
+        t, valid = _raw_chunk_times(root, u0, k, c, period, jitter,
+                                    dtl.device, dtl.t_end)
     with spans.span("alea.lookup"):
         cnt = _count_le(ends, grid, cell, t, dtl.grid_k)
         rid_mat = torch.gather(rids, 1, _interval(cnt, m_true))

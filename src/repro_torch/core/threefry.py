@@ -20,7 +20,15 @@ tensors masked to 32 bits after every add and shift; rotations are
 written as shift/or/mask. The same functions take Python ints (the
 per-chunk keys are derived on the host, so no per-chunk device work or
 synchronisation is spent on them) and int64 tensors (the per-sample
-counters), on the CPU and the GPU alike.
+counters).
+
+The sample clock has two routes. On the CPU the per-sample draw is
+:func:`uniform` here, ~190 torch operations a chunk
+(:mod:`repro_torch.kernels.sample_clock.ref`). On a CUDA device the
+chunk's key is still :func:`fold_in` on the host, but the per-sample
+rounds run on native ``uint32`` inside the ``sample_clock`` kernel
+(``kernels/sample_clock/sample_clock.cu``), one launch a chunk. The
+tests hold the CPU route to JAX's bits and the kernel to the CPU's.
 """
 
 from __future__ import annotations

@@ -15,10 +15,16 @@ def test_flash_attention_build_reads_its_header():
     assert names == ["flash_attention.cu", "flash_attention_wgmma.cuh"]
 
 
+def test_sample_clock_build_reads_its_source():
+    assert [p.name for p in _build._inputs("sample_clock")] == [
+        "sample_clock.cu"]
+    assert _build._source("sample_clock").is_file()
+
+
 @pytest.fixture
 def kernels_copy(tmp_path, monkeypatch):
     """A copy of the kernels' sources, so that edits touch no real file."""
-    for name in ("flash_attention", "rmsnorm", "sample_attr"):
+    for name in ("flash_attention", "rmsnorm", "sample_attr", "sample_clock"):
         src = _build._KERNELS_DIR / name
         dst = tmp_path / name
         dst.mkdir()
@@ -34,7 +40,8 @@ def kernels_copy(tmp_path, monkeypatch):
     ("flash_attention", "flash_attention_wgmma.cuh"),
     ("flash_attention", "new_header.cuh"),
     ("rmsnorm", "rmsnorm.cu"),
-    ("sample_attr", "sample_attr.cu")])
+    ("sample_attr", "sample_attr.cu"),
+    ("sample_clock", "sample_clock.cu")])
 def test_any_source_edit_renames_the_library(kernels_copy, name, edited):
     before = _build._target(name)
     path = kernels_copy / name / edited

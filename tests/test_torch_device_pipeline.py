@@ -1,11 +1,20 @@
 """Port parity: repro_torch's device pipeline (run on the CPU) against the
 JAX reference — the sample clock bit for bit, the timeline substrate
 array for array, and the region pipeline's statistics for every sensor
-at D=1 and D=3."""
+at D=1 and D=3. The clock's CUDA kernel: its C signature, its host-side
+arguments and its arithmetic (emulated here) against the CPU route, the
+CPU route never loading it, and, on a machine with a GPU, its times
+against the CPU's bit for bit."""
 
 import contextlib
+import ctypes
 import dataclasses
+import math
+import re
+import struct
 import sys
+from fractions import Fraction
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +66,10 @@ from repro_torch.core import device_pipeline as dp  # noqa: E402
 from repro_torch.core import sensors, threefry  # noqa: E402
 from repro_torch.core.timeline import (RegionCost, Timeline,  # noqa: E402
                                        synthesize)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.sample_clock import ops as clock_ops  # noqa: E402
+from repro_torch.kernels.sample_clock.ref import (  # noqa: E402
+    sample_clock_ref)
 
 _SENSORS = ("instant", "rapl", "ina231")
 _SPEC = {"instant": "InstantTraceSensor", "rapl": "RaplTraceSensor",
@@ -139,6 +152,200 @@ def test_chunk_sample_times_default_to_the_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dp.chunk_sample_times(threefry.PRNGKey(0), 0, 1e-3, 1e-4,
                               chunk_size=16)
+
+
+# ---------------------------------------------------------------------------
+# The sample_clock kernel: one launch a chunk on a CUDA device, the CPU's
+# torch operations bit for bit.
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+# (seed, k, c, jitter): the cases above, a lane count that is no multiple
+# of the kernel's block, k·c past 2^32, and no jitter.
+_KERNEL_CASES = [(0, 0, 1024, 2e-4), (3, 7, 4096, 2e-4), (11, 0, 65536, 2e-4),
+                 (2 ** 33 + 5, 2, 777, 2e-4), (1, 40000, 65536, 2e-4),
+                 (5, 2 ** 24, 65536, 2e-4), (9, 70000, 65613, 2e-4),
+                 (4, 3, 1000, 0.0), (2 ** 40 + 3, 2 ** 24, 65536, 0.0)]
+
+
+def _fma_exact(a: float, b: float, c: float) -> float:
+    """``a·b + c`` rounded once: exact rationals, then Python's correctly
+    rounded int division."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _threefry_u32(k0, k1, x0, x1):
+    """Threefry-2x32 as ``sample_clock.cu`` writes it: uint32 words whose
+    sums wrap, the key schedule in an array, ``i + 1`` added to the
+    second word after every four rounds."""
+    def add(*words):
+        return sum(words) & _MASK32
+
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = add(x0, ks[0]), add(x1, ks[1])
+    for i in range(5):
+        for r in rot[i % 2]:
+            x0 = add(x0, x1)
+            x1 = (((x1 << r) & _MASK32) | (x1 >> (32 - r))) ^ x0
+        x0 = add(x0, ks[(i + 1) % 3])
+        x1 = add(x1, ks[(i + 2) % 3], i + 1)
+    return x0, x1
+
+
+def _kernel_lane(args, i: int):
+    """Lane ``i`` of ``sc_clock`` on the wrapper's arguments, step by step
+    as the kernel rounds: (raw time, fused valid, fused time)."""
+    k0, k1, base, c, period, u0, lo, span, t_end = args
+    b1, b2 = _threefry_u32(k0, k1, i >> 32, i & _MASK32)
+    m = (b1 << 20) | (b2 >> 12)
+    f = struct.unpack("<d", struct.pack("<Q", m | 0x3FF0000000000000))[0]
+    f = f - 1.0
+    u = f * span + lo
+    u = lo if u < lo else u
+    s = _fma_exact(float(base + i), period, u0) + u
+    q = math.floor(_fma_exact(s, 1e9, 0.5)) * 1e-9
+    return q, q < t_end, (t_end if q > t_end else q)
+
+
+def _bits(x: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", x))[0]
+
+
+@pytest.mark.parametrize("seed,k,c,jitter", _KERNEL_CASES)
+def test_kernel_arithmetic_equals_the_cpu_route(seed, k, c, jitter):
+    """The kernel's lane arithmetic on the wrapper's own arguments, emulated
+    with uint32 words and exact fused multiply-adds, gives the CPU route's
+    times bit for bit, raw and with the fused tail, on the first, last and
+    scattered lanes."""
+    root = threefry.PRNGKey(seed)
+    period = 1e-3
+    u0 = dp._phase(root, period)
+    raw = sample_clock_ref(root, k, c, period, u0, jitter, device="cpu")
+    t_end = float(raw.median())
+    t, valid = sample_clock_ref(root, k, c, period, u0, jitter, t_end,
+                                device="cpu")
+    args = clock_ops.clock_args(root, k, c, period, u0, jitter, t_end)
+    rng = np.random.default_rng(seed % 2 ** 32)
+    lanes = sorted({*range(min(c, 48)), *range(max(c - 48, 0), c),
+                    *rng.integers(0, c, 64).tolist()})
+    for i in lanes:
+        q, v, tq = _kernel_lane(args, i)
+        assert _bits(q) == raw[i].view(torch.int64).item(), i
+        assert v == bool(valid[i]) and _bits(tq) == t[i].view(
+            torch.int64).item(), i
+
+
+@pytest.mark.parametrize("seed,k,c", [(0, 0, 1024), (2 ** 33 + 5, 2, 777),
+                                      (5, 2 ** 24, 65536),
+                                      (7, 2 ** 31 - 2, 65536)])
+def test_clock_args_match_fold_in_and_the_int64_index(seed, k, c):
+    """The key words are JAX's ``fold_in(PRNGKey(seed), k + 1)``, lane 0's
+    index is ``k·c`` split into int64 words without a wrap, the jitter
+    draw is ``uniform(key, c, 0.0, jitter)``'s offset and width, and
+    every argument reaches C unchanged through its declared type."""
+    root = threefry.PRNGKey(seed)
+    args = clock_ops.clock_args(root, k, c, 1e-3, 3.25e-4, 2e-4)
+    with jax.enable_x64(True):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), k + 1)
+        assert args[:2] == tuple(int(v) for v in key)
+    assert args[:2] == threefry.fold_in(root, k + 1)
+    base = args[2]
+    assert base == k * c and (base >> 32, base & _MASK32) == divmod(
+        k * c, 2 ** 32)
+    assert args[3:] == (c, 1e-3, 3.25e-4, 0.0, 2e-4, math.inf)
+    assert clock_ops.clock_args(root, k, c, 1e-3, 0.0, 2e-4, 5.0)[-1] == 5.0
+    for t, v in zip(clock_ops._ARGTYPES, args):
+        assert t(v).value == v
+
+
+def test_clock_args_refuse_indices_past_int64():
+    with pytest.raises(ValueError, match="int64"):
+        clock_ops.clock_args((0, 0), 2 ** 47, 2 ** 16, 1e-3, 0.0, 0.0)
+    with pytest.raises(ValueError, match="int64"):
+        clock_ops.clock_args((0, 0), -1, 16, 1e-3, 0.0, 0.0)
+
+
+def test_clock_c_signature_matches_declared_argtypes():
+    """ctypes passes arguments by the declared types alone: a mismatch with
+    the C signature would corrupt the call silently."""
+    src = Path(clock_ops.__file__).with_name("sample_clock.cu").read_text()
+    m = re.search(r"int sample_clock\(([^)]*)\)", src)
+    scalars = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+               "uint32_t": ctypes.c_uint32, "double": ctypes.c_double}
+    got = tuple(ctypes.c_void_p if "*" in p else
+                scalars[" ".join(p.split()).rsplit(" ", 1)[0]]
+                for p in m.group(1).split(","))
+    assert got == clock_ops._ARGTYPES
+
+
+@pytest.mark.parametrize("path", ["region", "combo"])
+def test_cpu_pipelines_never_load_the_clock_library(monkeypatch, path):
+    """On CPU tensors the pipelines run the clock's torch operations: the
+    kernel library is never built or loaded, and nothing is launched."""
+    real = _build.load
+
+    def refuse(name):
+        if name == "sample_clock":
+            raise AssertionError("the CPU route loaded sample_clock")
+        return real(name)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    clock_ops._kernel.cache_clear()
+    before = clock_ops.sample_clock.launches
+    tl, _ = _pair(steps=20)
+    kw = dict(period=10e-3, jitter=200e-6, seed=3, chunk_size=512)
+    if path == "region":
+        dtl = tl.to_device(device="cpu")
+        got = dp.run_region_pipeline(
+            dtl, sensors.RaplTraceSensor.make_spec(), **kw)
+        assert got.n > 0
+    else:
+        other, _ = _pair(steps=20, seed=1)
+        dtl = dp.DeviceTimeline.from_timelines([tl, other], device="cpu")
+        _, n = dp.run_combo_pipeline(
+            dtl, sensors.RaplTraceSensor.make_spec(), **kw)
+        assert n > 0
+    assert clock_ops.sample_clock.launches == before
+    assert clock_ops._kernel.cache_info().currsize == 0
+
+
+def test_sample_clock_refuses_other_devices():
+    with pytest.raises(ValueError, match="unsupported device"):
+        clock_ops.sample_clock((0, 0), 0, 16, 1e-3, 0.0, 1e-4,
+                               device="meta")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("the sample_clock kernel runs only on a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("seed,k,c,jitter", _KERNEL_CASES)
+def test_sample_clock_kernel_bit_equal_to_cpu(cuda_device, seed, k, c,
+                                              jitter):
+    """The kernel's times against the CPU route's, compared as int64 bits,
+    raw and with the fused tail; the tail also against the torch
+    expressions on the kernel's raw times. One launch a call."""
+    period = 1e-3
+    root = threefry.PRNGKey(seed)
+    u0 = dp._phase(root, period)
+    want = dp._raw_chunk_times(root, u0, k, c, period, jitter, "cpu")
+    before = clock_ops.sample_clock.launches
+    got = dp._raw_chunk_times(root, u0, k, c, period, jitter, cuda_device)
+    assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+    t_end = float(want.median())
+    wt, wv = dp._raw_chunk_times(root, u0, k, c, period, jitter, "cpu",
+                                 t_end)
+    gt, gv = dp._raw_chunk_times(root, u0, k, c, period, jitter,
+                                 cuda_device, t_end)
+    assert clock_ops.sample_clock.launches - before == 2
+    assert torch.equal(gt.cpu().view(torch.int64), wt.view(torch.int64))
+    assert torch.equal(gv.cpu(), wv)
+    assert torch.equal(gv, got < t_end)
+    assert torch.equal(gt, torch.clamp_max(got, t_end))
 
 
 # ---------------------------------------------------------------------------
