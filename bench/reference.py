@@ -18,7 +18,14 @@ the profile's seed, everything the profiler's device pipeline produces:
    ``tq_prev`` the sample before's ``tq`` (the run's first sample:
    ``max(tq - u, 0)``) and ``E`` each rail's exact energy integral of
    the piecewise-constant trace; summed over the workers, plus the total
-   channel (the sum of the rails) when there is more than one rail;
+   channel (the sum of the rails) when there is more than one rail. Or the
+   INA231 sensor (ALEA §4.5): a power meter that reports the mean power
+   over the window of ``INA231_WINDOW_S`` that ends at the sample, so the
+   reading at ``t`` is ``(E(t) - E(lo)) / (t - lo)`` per rail with
+   ``lo = max(t - w, 0)``, nothing carried from one sample to the next;
+   summed and totalled as the RAPL readings are. The one departure from
+   that definition: the divisor is at least 1e-12 s, which matters only
+   for a sample at ``t = 0``, whose window is empty;
 4. the combination of each in-horizon sample (its row of region ids, one
    per worker) and the order in which the streaming interner numbers
    them: by the chunk in which a row first appears, and within a chunk in
@@ -46,7 +53,10 @@ _PARITY = 0x1BD11BDA
 _ONE_BITS = 0x3FF0000000000000      # float64 1.0
 _VELTKAMP = 134217729.0             # 2^27 + 1
 RAPL_UPDATE_S = 1e-3                # the energy counter's refresh period
-SENSORS = ("rapl",)                 # the sensors this reference models
+# The INA231 power meter's averaging window: the shortest that ALEA §4.5
+# found feasible on the Exynos board's meters.
+INA231_WINDOW_S = 280e-6
+SENSORS = ("rapl", "ina231")        # the sensors this reference models
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +225,7 @@ def profile(workers, *, period: float, jitter: float, seed: int,
     bits = max(max(len(a.names) for a in workers) - 1, 1).bit_length()
     per_block = max(1, block_lanes // (chunk * W))
     up = RAPL_UPDATE_S
-    prev = None                     # the last sample's tq so far
+    prev = None                     # RAPL: the last sample's tq so far
     parts = []
     touched = 0
     for k0 in range(0, n_chunks, per_block):
@@ -227,18 +237,25 @@ def profile(workers, *, period: float, jitter: float, seed: int,
             continue
         lane_chunk = (torch.arange(t_raw.numel(), device=dev)
                       // chunk)[valid]
-        tq = torch.floor(t / up + 1e-6) * up
-        head = torch.clamp_min(tq[:1] - up, 0.0) if prev is None else prev
-        tq_prev = torch.cat([head, tq[:-1]])
-        dt = torch.clamp_min(tq - tq_prev, up)[:, None]
         rows = torch.empty((t.numel(), W), dtype=torch.int64, device=dev)
         rails = torch.zeros((t.numel(), D), dtype=torch.float64, device=dev)
         for w, sub in enumerate(subs):
             rows[:, w] = sub[1][_interval(sub[0], t)]
-            e_q = _energy(sub, tq)
-            e_prev = torch.cat([_energy(sub, head), e_q[:-1]])
-            rails += (e_q - e_prev) / dt
-        prev = tq[-1:]
+        if sensor == "rapl":
+            tq = torch.floor(t / up + 1e-6) * up
+            head = torch.clamp_min(tq[:1] - up, 0.0) if prev is None else prev
+            tq_prev = torch.cat([head, tq[:-1]])
+            dt = torch.clamp_min(tq - tq_prev, up)[:, None]
+            for sub in subs:
+                e_q = _energy(sub, tq)
+                e_prev = torch.cat([_energy(sub, head), e_q[:-1]])
+                rails += (e_q - e_prev) / dt
+            prev = tq[-1:]
+        else:                       # ina231: the window [lo, t]
+            lo = torch.clamp_min(t - INA231_WINDOW_S, 0.0)
+            span = torch.clamp_min(t - lo, 1e-12)[:, None]
+            for sub in subs:
+                rails += (_energy(sub, t) - _energy(sub, lo)) / span
         chan = rails if D == 1 else torch.cat(
             [rails, rails.sum(dim=1, keepdim=True)], dim=1)
         chan = chan.to(fold_dtype)

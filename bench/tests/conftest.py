@@ -22,7 +22,12 @@ TINY_TRAFFIC = dict(what="a tiny program for tests", blocks=24,
                     invocations=4, steps=6, flops_log10=[10.5, 11.5],
                     hbm_bytes_log10=[8.5, 9.5], latency_noise=0.08,
                     power_noise=0.02, efficiency=0.85)
-TINY = {"tiny-region": ("alea-region", 1), "tiny-combo": ("alea-combo-w16", 4)}
+# The INA231 meter's shortest window (ALEA §4.5) as the sampling period,
+# with the 20% jitter of the RAPL configurations.
+ARM = dict(sensor="ina231", period_s=2.8e-4, jitter_s=5.6e-5)
+TINY = {"tiny-region": ("alea-region", 1, {}),
+        "tiny-combo": ("alea-combo-w16", 4, {}),
+        "tiny-arm": ("alea-combo-w16", 4, ARM)}
 
 
 def pytest_configure(config):
@@ -31,18 +36,18 @@ def pytest_configure(config):
 
 
 def make_tiny(tmp: Path):
-    """A copy of the benchmark with two tiny cells (``tiny-region``, one
-    worker; ``tiny-combo``, four) added as new files and entries; returns
-    (root, bench)."""
+    """A copy of the benchmark with three tiny cells (``tiny-region``, one
+    worker; ``tiny-combo``, four; ``tiny-arm``, four read by the INA231
+    sensor) added as new files and entries; returns (root, bench)."""
     root, bench = tmp / "root", tmp / "root" / "bench"
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns(
         "__pycache__", "tests"))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     (bench / "traffic" / "tiny.json").write_text(json.dumps(TINY_TRAFFIC))
-    for name, (base, workers) in TINY.items():
+    for name, (base, workers, changes) in TINY.items():
         cfg = json.loads((BENCH / "configs" / f"{base}.json").read_text())
         cfg.update(name=name, workers=workers, chunk_size=4096,
-                   samples_per_profile=60000)
+                   samples_per_profile=60000, **changes)
         (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
         spec["configs"].append(dict(name=name, source="tests",
                                     file=f"bench/configs/{name}.json",

@@ -2,6 +2,7 @@
 files, the result line, and the check failing runs whose timed path is
 broken underneath."""
 
+import dataclasses
 import hashlib
 import json
 import re
@@ -210,7 +211,7 @@ def _altered_answer(monkeypatch, dp):
 
 @pytest.mark.parametrize("fault", [_unchanged_step, _half_batch,
                                    _altered_answer])
-@pytest.mark.parametrize("cell", ["tiny-region", "tiny-combo"])
+@pytest.mark.parametrize("cell", ["tiny-region", "tiny-combo", "tiny-arm"])
 def test_a_broken_timed_path_is_not_correct(tiny, monkeypatch, fault, cell):
     from repro_torch.core import device_pipeline as dp
     root, bench = tiny
@@ -219,12 +220,65 @@ def test_a_broken_timed_path_is_not_correct(tiny, monkeypatch, fault, cell):
     assert out["correct"] is False, out["checks"]
 
 
+# -- faults planted in the INA231 window sensor -----------------------------
+
+
+def _window_1ms(monkeypatch, dp):
+    """The meter's window set to 1 ms instead of 280 us."""
+    sensor = dp._sensor_powers
+
+    def sensor_powers(spec, *a):
+        return sensor(dataclasses.replace(spec, window=1e-3), *a)
+    monkeypatch.setattr(dp, "_sensor_powers", sensor_powers)
+
+
+def _window_ahead(monkeypatch, dp):
+    """The window put ahead of the sample: the mean over [t, t + w]."""
+    sensor = dp._sensor_powers
+
+    def sensor_powers(spec, arrs, t, cnt, valid, prev, k_max):
+        ends, grid, cell = arrs[0], arrs[6], arrs[7]
+        ahead = t + spec.window
+        return sensor(spec, arrs, ahead,
+                      dp._count_le(ends, grid, cell, ahead, k_max), valid,
+                      prev, k_max)
+    monkeypatch.setattr(dp, "_sensor_powers", sensor_powers)
+
+
+def _instant_power(monkeypatch, dp):
+    """The power at the sample's time read in place of the window's
+    mean."""
+    sensor = dp._sensor_powers
+
+    def sensor_powers(spec, *a):
+        return sensor(dataclasses.replace(spec, kind="instant"), *a)
+    monkeypatch.setattr(dp, "_sensor_powers", sensor_powers)
+
+
+def test_a_sound_ina231_run_is_correct(tiny):
+    root, bench = tiny
+    out = _run(root, bench, "tiny-arm", trace=True)
+    assert out["correct"], out["checks"]
+    assert {"entry_fixed_ms", "host_ms_per_chunk",
+            "miss_wall_pct"} <= set(out["metrics"])
+
+
+@pytest.mark.parametrize("fault", [_window_1ms, _window_ahead,
+                                   _instant_power])
+def test_a_broken_ina231_window_is_not_correct(tiny, monkeypatch, fault):
+    from repro_torch.core import device_pipeline as dp
+    root, bench = tiny
+    fault(monkeypatch, dp)
+    out = _run(root, bench, "tiny-arm")
+    assert out["correct"] is False, out["checks"]
+
+
 @pytest.mark.gpu
 def test_a_tiny_cell_on_the_card(tiny):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     root, bench = tiny
-    for name in ("tiny-region", "tiny-combo"):
+    for name in ("tiny-region", "tiny-combo", "tiny-arm"):
         cell = harness.load_cell(root, name, bench)
         out = harness.run(cell, seed=11, seconds=1, trace=True,
                           dev=torch.device("cuda", 0), t_start=0.0)

@@ -3,6 +3,7 @@ the CPU at tiny sizes; and what the benchmark's code may import and
 read."""
 
 import ast
+import hashlib
 import json
 import subprocess
 import sys
@@ -14,7 +15,7 @@ import torch
 
 import generator
 import reference
-from conftest import BENCH, ROOT, TINY_TRAFFIC
+from conftest import ARM, BENCH, ROOT, TINY, TINY_TRAFFIC
 
 TOL = dict(mean_gap=1e-12, spread_gap=1e-9)    # the port's own oracle rtol
 
@@ -23,9 +24,10 @@ CONFIGS = [c["name"] for c in json.loads(
     (ROOT / "BENCHMARK.json").read_text())["configs"]]
 
 
-def _cell(workers, chunk=4096, seed=2**31 + 77):
+def _cell(workers, chunk=4096, seed=2**31 + 77, **changes):
     cfg = json.loads((BENCH / "configs" / "alea-combo-w16.json").read_text())
-    cfg.update(workers=workers, chunk_size=chunk, samples_per_profile=60000)
+    cfg.update(workers=workers, chunk_size=chunk, samples_per_profile=60000,
+               **changes)
     base = generator.cell_timeline(TINY_TRAFFIC, cfg, seed)
     return cfg, generator.workers(base, cfg)
 
@@ -63,9 +65,13 @@ def _port_profile(arrays, cfg, seed):
     return keys, cols, est.n_total, est.t_exec
 
 
-@pytest.mark.parametrize("workers", [1, 4])
-def test_reference_equals_the_port_on_the_cpu(workers):
-    cfg, arrays = _cell(workers)
+@pytest.mark.parametrize("workers,changes", [
+    pytest.param(1, {}, id="1"), pytest.param(4, {}, id="4"),
+    pytest.param(1, ARM, id="ina231-1"), pytest.param(4, ARM, id="ina231-4")])
+def test_reference_equals_the_port_on_the_cpu(workers, changes):
+    """RAPL at 1 ms, and the INA231 window sensor sampled at its 280 us
+    window."""
+    cfg, arrays = _cell(workers, **changes)
     seed = 5_000_000_017
     got = _port_profile(arrays, cfg, seed)
     ref = _reference(arrays, cfg, seed)
@@ -80,13 +86,17 @@ def test_reference_equals_the_port_on_the_cpu(workers):
     assert ref.n == int(np.sum(ref.counts))
 
 
-@pytest.mark.parametrize("config", CONFIGS)
-def test_control_fails_the_limits(config):
+@pytest.mark.parametrize("config,changes", [
+    *(pytest.param(c, {}, id=c) for c in CONFIGS),
+    pytest.param("alea-combo-w16", ARM, id="ina231")])
+def test_control_fails_the_limits(config, changes):
     """The control (float32 sensor readings and sums) in the program's
-    place fails a number of the configuration's check."""
+    place fails a number of the configuration's check; ``ina231``: four
+    workers read by the INA231 sensor, held to the limits of the
+    16-worker configuration."""
     limits = json.loads((BENCH / "configs" / f"{config}.json").read_text()
                         )["limits"]
-    cfg, arrays = _cell(1 if config == "alea-region" else 4)
+    cfg, arrays = _cell(1 if config == "alea-region" else 4, **changes)
     low = _reference(arrays, cfg, 41, fold_dtype=torch.float32)
     ref = _reference(arrays, cfg, 41)
     nums = reference.compare(low.keys, reference.estimates(low, 0.05),
@@ -99,6 +109,47 @@ def test_the_reference_refuses_a_sensor_it_does_not_model():
     cfg["sensor"] = "instant"
     with pytest.raises(ValueError, match="instant"):
         _reference(arrays, cfg, 3)
+
+
+# sha256 of keys, counts, Σpow and Σpow² of the RAPL reference profiles of
+# the tiny cells, as the reference gave them before it learned the INA231
+# sensor (run seeds 1 and 2**31 + 5, the window's first profile, blocks of
+# 2**14 lanes so that the counter's last sample crosses blocks).
+RAPL_DIGESTS = {
+    ("tiny-region", 1):
+        "596e775534399ff93bf07e14a8500e5e3a8cdea0b4fe757bb769ad84d3ec6aee",
+    ("tiny-region", 2**31 + 5):
+        "7633d044cf4a1d3822013768af55ebaeb74672ef2cb67d52f7754ba82d19657b",
+    ("tiny-combo", 1):
+        "02ab5e5933106cc5d66e24315a271e5347d356e33468f9de1c360f8dd9ce3d97",
+    ("tiny-combo", 2**31 + 5):
+        "16c8af305cdffd463cc109b964bc84ebd91faeda772697ef9e6a079d55fc9d1c",
+}
+
+
+def _digest(prof) -> str:
+    h = hashlib.sha256()
+    for a in (prof.keys, prof.counts, prof.psum, prof.psumsq):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _tiny_rapl_profile(cell: str, seed: int):
+    base, workers, _ = TINY[cell]
+    cfg = json.loads((BENCH / "configs" / f"{base}.json").read_text())
+    cfg.update(workers=workers, chunk_size=4096, samples_per_profile=60000)
+    arrays = generator.workers(
+        generator.cell_timeline(TINY_TRAFFIC, cfg, seed), cfg)
+    return _reference(arrays, cfg, generator.derived_seed(seed, 2, 0),
+                      block_lanes=1 << 14)
+
+
+@pytest.mark.parametrize("cell,seed", list(RAPL_DIGESTS))
+def test_the_rapl_profiles_of_the_tiny_cells_are_unchanged(cell, seed):
+    """The RAPL arithmetic is bit for bit what it was before the INA231
+    branch was added beside it."""
+    assert _digest(_tiny_rapl_profile(cell, seed)) == RAPL_DIGESTS[
+        (cell, seed)]
 
 
 def test_clock_equals_the_port_bit_for_bit():
