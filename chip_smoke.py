@@ -10,6 +10,10 @@ source, all started together), then
 runs these phases, and fails (non-zero exit) if any check fails:
 
 1. clock    — the sample clock on the GPU equals the CPU's bit for bit;
+   count_le — the interval lookup's kernel equals the CPU's torch
+              operations and searchsorted bit for bit (W in {1, 4, 16},
+              grid windows of 1 to 5 ends; then W = 4 workers of 2^20
+              intervals, as the main path's), one launch a lookup;
 2. parity   — ``EnergyProfiler.profile_timeline_streaming(pipeline=
               "device")`` on the GPU against the port's numpy oracle for
               every trace sensor at D=1 and D=3, ~10^6 samples each;
@@ -24,14 +28,15 @@ runs these phases, and fails (non-zero exit) if any check fails:
 3. full     — the profiler's main path at full size: one profiling run of
               a 4096-region, 2^20-interval, 3-rail timeline at >= 10^8
               samples (chunk 65536), with the launch counters set to 0
-              just before and read just after; it runs before any
+              just before and read just after (one sample_clock, one
+              count_le and one sample_attr a chunk); it runs before any
               torch.profiler session, since a process that has traced
               the device pays more host time per launch afterwards;
    combo-full — the combination path at full size: 16 phase-shifted
               workers of that timeline (4-word keys), >= 5·10^7 samples,
               10^4-10^5 combinations, counters set to 0 just before and
-              read just after (one fold per chunk plus one per miss
-              chunk); both print the host ms per chunk of each stage
+              read just after (one clock, lookup and fold per chunk plus
+              one each per miss chunk); both print the host ms per chunk of each stage
               from the profile's own record (``core.spans``);
    exchange — the cross-host shard exchange in an NCCL world of one:
               ``CollectiveExchange`` and ``CheckpointExchange`` reduce
@@ -50,7 +55,8 @@ runs these phases, and fails (non-zero exit) if any check fails:
               yi-6b's train_4k step on 8 chips, 150 steps synthesized,
               the one-shot profile, then the device pipeline on the card
               (``sample_attr``, counters set to 0 just before and read
-              just after) against the same pipeline on the CPU at 10 ms
+              just after: under RAPL three count_le launches a chunk,
+              under instant one) against the same pipeline on the CPU at 10 ms
               (counts equal, sums rtol 1e-9), two card runs at 100 µs
               (instant sensor, jitter 20 µs; bitwise equal, samples/s),
               the energy-optimal plan over the card's six hotspots equal
@@ -187,8 +193,9 @@ runs these phases, and fails (non-zero exit) if any check fails:
    the card, each row printed beside the CPU budget's counts: the 12
    serve steps with 0 float64 ops, 0 widenings and 0 host waits, the
    region step and the miss fold with no host wait, the combination
-   step with exactly one (its miss flag), every carry leaf in place, and
-   ``sample_attr`` launched on every device-pipeline path.
+   step with exactly one (its miss flag), every carry leaf in place,
+   ``sample_attr`` launched on every device-pipeline path, and three
+   ``count_le`` launches in each RAPL chunk step (none in the fold).
 
 Each phase's seconds are printed on a line of their own. The line
 before the last is a JSON object listing every kernel; the last
@@ -330,11 +337,13 @@ def _fmt(ms):
 
 def launch_counters():
     """Every kernel wrapper of the port; each counts its own launches."""
+    from repro_torch.kernels.count_le.ops import count_le
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.sample_attr.ops import sample_attr_fold
     from repro_torch.kernels.sample_clock.ops import sample_clock
-    return (sample_attr_fold, sample_clock, flash_attention, rmsnorm)
+    return (sample_attr_fold, sample_clock, count_le, flash_attention,
+            rmsnorm)
 
 
 # ---------------------------------------------------------------------------
@@ -474,7 +483,7 @@ def sharding_phase(dev):
         _, sharded_ms2 = timed(sharded)
     bitwise = torch.equal(got, want)
     rel = _max_rel(got, want)
-    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
                        "flash_attention": cfg.n_layers, "rmsnorm": 0},
           f"sharding (a): launches in the sharded prefill {launches}")
     check(tuple(got.shape) == (B, 1, cfg.vocab_size)
@@ -1035,6 +1044,69 @@ def clock_phase():
         f"cases, k·c up to {max(k * c for _, k, c, _, _ in CLOCK_CASES)})")
 
 
+def count_le_phase():
+    """The count_le kernel against the CPU's torch operations (its ref.py)
+    and torch.searchsorted, bit for bit, on one chunk of 65536 times that
+    land on ends, beside them, on grid points and between: at W in
+    {1, 4, 16} and grid windows of 1 to 5 ends on timelines of ~4096
+    intervals a worker, then at the main path's size, W = 4 workers of
+    2^20 intervals (there the grid's cells are wider, so a burst of k
+    ends reads as a window of k or k + 1). One launch a lookup; at the
+    main path's size each lookup is timed beside its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.core import device_pipeline as dp
+    from repro_torch.kernels.count_le.ops import count_le
+    from repro_torch.kernels.count_le.ref import count_le_ref
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_count_le_cases import burst_timelines
+    n = 65536
+    cases = [(w, k, 4096) for w in (1, 4, 16) for k in (1, 2, 3, 4, 5)]
+    cases += [(4, k, 2 ** 20) for k in (3, 4)]
+    for workers, k, m in cases:
+        tls = burst_timelines(workers, k, m=m, seed=workers * 10 + k)
+        cpu = dp.DeviceTimeline.from_timelines(tls, device="cpu")
+        gpu = dp.DeviceTimeline.from_timelines(tls, device="cuda")
+        del tls
+        window = cpu.grid_k
+        what = f"count_le W={workers} m={m} window={window}"
+        check(window == k or m == 2 ** 20 and window in (k, k + 1),
+              f"{what}: grid window {window} for bursts of {k}")
+        rng = np.random.default_rng(k)
+        ends = cpu.ends[0, :int(cpu.m_true[0])].numpy()
+        near = np.flatnonzero(np.diff(ends) < 1e-9)        # the bursts
+        some = np.concatenate([rng.choice(ends, min(len(ends), 4096),
+                                          replace=False),
+                               ends[np.union1d(near, near + 1)]])
+        g = rng.integers(0, cpu.grid.shape[1], 4096) * float(cpu.cell[0])
+        picks = np.concatenate([some, np.nextafter(some, np.inf),
+                                np.nextafter(some, -np.inf), g])
+        t = np.concatenate([picks, rng.uniform(
+            0.0, float(ends[-1]), n - len(picks))])
+        t_cpu = torch.from_numpy(t)
+        want = count_le_ref(cpu.ends, cpu.grid, cpu.cell, t_cpu, window)
+        t_gpu = t_cpu.to("cuda")
+        before = count_le.launches
+        got = dp._count_le(gpu.ends, gpu.grid, gpu.cell, t_gpu, gpu.grid_k)
+        torch.cuda.synchronize()
+        check(count_le.launches - before == 1,
+              f"{what}: one kernel launch a lookup")
+        check(torch.equal(got.cpu(), want),
+              f"{what}: kernel counts equal ref.py's")
+        check(torch.equal(want, torch.searchsorted(
+            cpu.ends, t_cpu.expand(workers, -1).contiguous(), right=True)),
+            f"{what}: ref.py equals searchsorted")
+        if m == 2 ** 20:
+            args = (gpu.ends, gpu.grid, gpu.cell, t_gpu, window)
+            log(f"{what}: kernel {time_ms(lambda: count_le(*args)):.5f} "
+                f"ms, plain {time_ms(lambda: count_le_ref(*args)):.5f} ms "
+                f"a lookup of {n} lanes")
+    log(f"count_le: kernel counts equal the CPU's torch operations and "
+        f"searchsorted bit for bit ({len(cases)} cases: W in 1/4/16 and "
+        f"grid windows 1-5 at ~4096 intervals a worker, W = 4 at 2^20; "
+        f"{n} lanes each)")
+
+
 def parity_timeline(domains, seed=2):
     """64 regions x 16 invocations x 64 steps = 65536 intervals, t_exec
     ~ 10^3 s, so 1 ms sampling (RAPL's floor) gives ~10^6 samples;
@@ -1328,6 +1400,7 @@ def full_phase(tl):
     import torch
     from repro_torch.core import device_pipeline as dp
     from repro_torch.core.profiler import EnergyProfiler
+    from repro_torch.kernels.count_le.ops import count_le
     from repro_torch.kernels.sample_attr import ops
     from repro_torch.kernels.sample_clock.ops import sample_clock
     target = 102_000_000
@@ -1350,10 +1423,12 @@ def full_phase(tl):
         secs = time.perf_counter() - t0
     launches = ops.sample_attr_fold.launches
     clocks = sample_clock.launches
+    lookups = count_le.launches
     others = {c.__name__: c.launches for c in counters
-              if c not in (ops.sample_attr_fold, sample_clock)}
+              if c not in (ops.sample_attr_fold, sample_clock, count_le)}
     peak = torch.cuda.max_memory_allocated()
     n = int(est.n_total)
+    window = prof.last_trace.lookup_window
     # Every sample i lies in [i·T, i·T + T + jitter): all i with
     # i·T + T + jitter < t_end are valid, none with i·T >= t_end.
     lo = int((tl.t_exec - period - jitter) // period)
@@ -1365,6 +1440,10 @@ def full_phase(tl):
           f"full: sample_attr launches {launches} == chunks {n_chunks}")
     check(clocks == n_chunks,
           f"full: sample_clock launches {clocks} == chunks {n_chunks}")
+    # instant: one lookup a chunk, the sample times'.
+    check(window > 0 and lookups == n_chunks,
+          f"full: count_le launches {lookups} == chunks {n_chunks} "
+          f"(lookup window {window})")
     check(not any(others.values()), f"full: other kernels launched {others}")
     check(bool((est.table.pow_hat > 0).all()) and all(
         bool(torch.isfinite(torch.as_tensor(getattr(est.table, f))).all())
@@ -1373,7 +1452,7 @@ def full_phase(tl):
     log(f"full: {n} samples in {n_chunks} chunks, {secs:.3f} s "
         f"({n / secs:.4e} samples/s), peak device memory "
         f"{peak / 2 ** 20:.1f} MiB, sample_attr launches {launches}, "
-        f"regions attributed {len(est.table)}")
+        f"count_le launches {lookups}, regions attributed {len(est.table)}")
     check(prof.last_trace.counters["chunks"] == n_chunks,
           "full: the profile's record counts its chunks")
     log_stages("full", prof.last_trace)
@@ -1420,7 +1499,8 @@ def log_stages(tag, trace):
     spans`): the stages directly under ``alea.pipeline`` (a miss path's
     replays sit inside ``miss``), their share of the pipeline, the rows
     one miss brings to the host (P1), and the entry's upload with its
-    copy rate (P10) where the record holds it."""
+    copy rate (P10) where the record holds it, and the lookup's grid
+    window and worker-lanes a chunk."""
     got = trace.counters
     chunks, misses = got["chunks"], got.get("miss_chunks", 0)
     pipe = trace.seconds("alea.pipeline")
@@ -1437,7 +1517,9 @@ def log_stages(tag, trace):
            else "") + "): "
         + ", ".join(f"{k} {v / chunks * 1e3:.3f}" for k, v in stages.items())
         + f"; {100 * sum(stages.values()) / pipe:.1f}% of the pipeline's "
-        f"{pipe:.3f} s"
+        f"{pipe:.3f} s; lookup window {trace.lookup_window}, "
+        f"{got.get('lookup_lanes', 0) / chunks:.0f} worker-lanes looked "
+        f"up a chunk"
         + (f"; upload {upload * 1e3:.1f} ms, its copy "
            f"{got['upload_bytes'] / copy * 1e-9:.2f} GB/s" if upload
            else ""))
@@ -1614,6 +1696,7 @@ def combo_full_phase(tl):
     stage from the run's own record."""
     import torch
     from repro_torch.core import device_pipeline as dp, sensors, spans
+    from repro_torch.kernels.count_le.ops import count_le
     from repro_torch.kernels.sample_attr import ops
     from repro_torch.kernels.sample_clock.ops import sample_clock
     period = tl.t_exec / COMBO_SAMPLES
@@ -1641,8 +1724,9 @@ def combo_full_phase(tl):
     secs = time.perf_counter() - t0
     launches = ops.sample_attr_fold.launches
     clocks = sample_clock.launches
+    lookups = count_le.launches
     others = {c.__name__: c.launches for c in counters
-              if c not in (ops.sample_attr_fold, sample_clock)}
+              if c not in (ops.sample_attr_fold, sample_clock, count_le)}
     peak = torch.cuda.max_memory_allocated()
     est, rows = agg.estimates(dtl.t_end, tl.names)
     distinct = len(agg.interner)
@@ -1662,6 +1746,10 @@ def combo_full_phase(tl):
     check(clocks == chunks + misses,
           f"combo-full: sample_clock launches {clocks} == chunks {chunks} "
           f"+ miss replays {misses}")
+    # instant: one lookup a chunk and one a miss replay.
+    check(dtl.grid_k > 0 and lookups == chunks + misses,
+          f"combo-full: count_le launches {lookups} == chunks {chunks} + "
+          f"miss replays {misses} (lookup window {dtl.grid_k})")
     check(not any(others.values()),
           f"combo-full: other kernels launched {others}")
     check(misses < chunks / 2, f"combo-full: {misses} of {chunks} chunks "
@@ -1676,8 +1764,9 @@ def combo_full_phase(tl):
         f"chunks ({stats['miss_seconds']:.3f} s of host wall in the miss "
         f"path), {distinct} combinations, table capacity {cap}, "
         f"{pack[2]} key words ({pack[0]} bits a region); sample_attr "
-        f"launches {launches}; peak device memory {peak / 2 ** 20:.1f} "
-        f"MiB; timelines built and uploaded in {build_s:.1f} s")
+        f"launches {launches}, count_le {lookups}; peak device memory "
+        f"{peak / 2 ** 20:.1f} MiB; timelines built and uploaded in "
+        f"{build_s:.1f} s")
     log_stages("combo-full", trace)
     ch = ComboChunk(dtl, spec, agg.interner, period, k=chunks - 2, c=chunk)
     return dict(n=n, chunks=chunks, miss_chunks=misses, seconds=secs,
@@ -2038,14 +2127,17 @@ def energy_phase(dev):
     counters = launch_counters()
     for c in counters:
         c.launches = 0
+    coarse_prof = EnergyProfiler(period=ENERGY_PERIOD, device=dev)
     with captured_aggregators() as card_aggs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        card = EnergyProfiler(period=ENERGY_PERIOD, device=dev
-                              ).profile_timeline_streaming(
+        card = coarse_prof.profile_timeline_streaming(
             tl, sensor="rapl", pipeline="device")
         secs = time.perf_counter() - t0
     coarse = {c.__name__: c.launches for c in counters}
+    # RAPL: three lookups a chunk (the sample times, their quantised
+    # times and the one-lane chain head); none on the search route.
+    window = coarse_prof.last_trace.lookup_window
     with captured_aggregators() as cpu_aggs:
         cpu = EnergyProfiler(period=ENERGY_PERIOD, device="cpu"
                              ).profile_timeline_streaming(
@@ -2057,6 +2149,9 @@ def energy_phase(dev):
     check(coarse["sample_clock"] == chunks,
           f"energy (a): sample_clock launches {coarse['sample_clock']} "
           f"== chunks {chunks}")
+    check(coarse["count_le"] == (3 * chunks if window else 0),
+          f"energy (a): count_le launches {coarse['count_le']} == 3 a "
+          f"chunk x {chunks} (lookup window {window})")
     check(card.n_total == cpu.n_total, "energy (a): n")
     got = card_aggs[0].channel_statistics()
     want = cpu_aggs[0].channel_statistics()
@@ -2066,8 +2161,9 @@ def energy_phase(dev):
           f"energy (a): sums rtol {PIPELINE_RTOL}")
     log(f"energy (a): {card.n_total} samples at {ENERGY_PERIOD * 1e3:g} ms "
         f"(rapl) in {secs:.3f} s on the card, {chunks} chunks, "
-        f"{coarse['sample_attr_fold']} sample_attr launches; counts equal to "
-        f"the CPU's, sums rtol {PIPELINE_RTOL}")
+        f"{coarse['sample_attr_fold']} sample_attr and {coarse['count_le']} "
+        f"count_le launches (lookup window {window}); counts equal to the "
+        f"CPU's, sums rtol {PIPELINE_RTOL}")
 
     fine = EnergyProfiler(period=ENERGY_FINE_PERIOD,
                           jitter=ENERGY_FINE_JITTER, device=dev)
@@ -2089,6 +2185,12 @@ def energy_phase(dev):
               == r["launches"]["sample_clock"] for r in runs),
           f"energy (b): sample_attr and sample_clock launches == chunks "
           f"{fine_chunks}")
+    # instant: one lookup a chunk on the grid route.
+    check(all(r["launches"]["count_le"] == (fine_chunks if window else 0)
+              for r in runs),
+          f"energy (b): count_le launches "
+          f"{[r['launches']['count_le'] for r in runs]} == chunks "
+          f"{fine_chunks} (lookup window {window})")
     check(_agg_bits_equal(runs[0]["agg"], runs[1]["agg"]),
           "energy (b): two card runs bitwise equal")
     log(f"energy (b): {runs[0]['n']} samples at "
@@ -2231,6 +2333,7 @@ def recompile_guard(dev, served):
     import torch
     from repro_torch.analysis.op_audit import jit_cache_size
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.count_le import ops as lops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.sample_attr import ops as sops
@@ -2240,7 +2343,8 @@ def recompile_guard(dev, served):
     from repro_torch.serve.engine import (Engine, Request, ServeConfig,
                                           _spec_step_fns, _step_fns)
     for name, mod in (("sample_attr", sops), ("sample_clock", cops),
-                      ("flash_attention", fops), ("rmsnorm", rops)):
+                      ("count_le", lops), ("flash_attention", fops),
+                      ("rmsnorm", rops)):
         info = mod._kernel.cache_info()
         log(f"analysis (c): {name} library loads: {info.misses} "
             f"(calls {info.hits + info.misses})")
@@ -2328,6 +2432,12 @@ def analysis_phase(dev, served):
             check(r.launches.get("sample_clock", 0) == clocks,
                   f"analysis (b): {r.name}: sample_clock launches "
                   f"{r.launches.get('sample_clock', 0)} != {clocks}")
+            # A RAPL chunk step: three lookups on the fixtures' grid
+            # route (lookup window 3); the fold looks nothing up.
+            lookups = 3 * clocks
+            check(r.launches.get("count_le", 0) == lookups,
+                  f"analysis (b): {r.name}: count_le launches "
+                  f"{r.launches.get('count_le', 0)} != {lookups}")
         if "/region_run/" in r.name or "/combo_fold/" in r.name:
             check(r.host_callbacks == 0, f"analysis (b): {r.render()}")
         if "/combo_step/" in r.name:
@@ -2484,7 +2594,7 @@ def model_phase(dev, arch=MODEL_ARCH, *, depth=None, steps=MODEL_DECODE,
     check(after_prefill == cfg.n_layers,
           f"model {arch}: flash launches per prefill {after_prefill} == "
           f"{cfg.n_layers}")
-    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
                        "flash_attention": cfg.n_layers, "rmsnorm": 0},
           f"model {arch}: launches in prefill + decode {launches}")
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
@@ -2651,7 +2761,7 @@ def audio_phase(dev):
         full, _ = M.forward(p, cfg, batch, attn_impl="full")
         loss = {impl: float(M.loss_fn(p, cfg, batch, attn_impl=impl)[0])
                 for impl in ("flash", "full")}
-    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
                        "flash_attention": cfg.n_layers, "rmsnorm": 0},
           f"audio: launches {launches}")
     check(tuple(logits.shape) == (B, S, cfg.vocab_size)
@@ -2870,7 +2980,7 @@ def recurrent_model_phase(dev, arch):
 
     check(after_prefill == n_attn, f"model {arch}: flash launches per "
           f"prefill {after_prefill} == {n_attn}")
-    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
                        "flash_attention": n_attn, "rmsnorm": 0},
           f"model {arch}: launches in prefill + decode {launches}")
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
@@ -3129,7 +3239,7 @@ def serve_phase(dev, arch=MODEL_ARCH, *, full=True):
           f"serve {arch}: {len(done)}/{SERVE_REQUESTS} requests served")
     check(n_tok == SERVE_REQUESTS * SERVE_NEW,
           f"serve {arch}: {n_tok} tokens out")
-    check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
+    check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
                        "flash_attention": 0, "rmsnorm": 0},
           f"serve {arch}: launches {launches}")
     by = est.by_name()
@@ -3831,7 +3941,8 @@ def train_phase(dev, arch=MODEL_ARCH):
         check(not sampled, f"{tag} (a): samples in {sampled}")
         check(not inner_stored, f"{tag} (a): marker stored {inner_stored}")
         check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
-                           "flash_attention": 0, "rmsnorm": 0},
+                           "count_le": 0, "flash_attention": 0,
+                           "rmsnorm": 0},
               f"{tag} (a): launches {launches}")
         log(f"{tag} (a): launcher main: {arch} {n_params} parameters "
             f"(float32 masters), B={TRAIN_BATCH} S={TRAIN_SEQ}, "
@@ -4077,8 +4188,8 @@ def main():
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
-    names = ["sample_attr", "sample_clock", "flash_attention", "rmsnorm",
-             "stream_marker"]
+    names = ["sample_attr", "sample_clock", "count_le", "flash_attention",
+             "rmsnorm", "stream_marker"]
     t0 = time.perf_counter()
     _build.build(names)
     log(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s "
@@ -4091,6 +4202,8 @@ def main():
     # the chunk loop is launch-bound (PERF.md).
     with phase("clock"):
         clock_phase()
+    with phase("count_le"):
+        count_le_phase()
     with phase("parity"):
         parity_phase()
     with phase("combo-parity"):

@@ -243,12 +243,13 @@ class PathReport:
 
 
 def _launch_counters() -> dict:
+    from repro_torch.kernels.count_le.ops import count_le
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.sample_attr.ops import sample_attr_fold
     from repro_torch.kernels.sample_clock.ops import sample_clock
     return {"sample_attr_fold": sample_attr_fold,
-            "sample_clock": sample_clock,
+            "sample_clock": sample_clock, "count_le": count_le,
             "flash_attention": flash_attention, "rmsnorm": rmsnorm}
 
 

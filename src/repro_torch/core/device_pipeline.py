@@ -44,7 +44,10 @@ clock are emulated exactly (``ref.py``); on a CUDA device one launch of
 the ``sample_clock`` kernel draws the same threefry bits on ``uint32``
 and takes the two products as hardware FMAs, with every other step one
 explicit rounding, so a chunk's times on the GPU equal the CPU's bit for
-bit.
+bit. The interval lookup's grid route is likewise one launch of the
+``count_le`` kernel on a CUDA device and its ``ref.py`` torch operations
+on the CPU (:mod:`repro_torch.kernels.count_le`), equal counts either
+way.
 
 **Power-rail domain axis.** Multi-domain timelines carry per-rail energy
 integrals ``[W, D, ·]``; each rail applies the sensor's semantics to its
@@ -83,6 +86,7 @@ from repro_torch.core.streaming import (CombinationInterner,
                                         StreamingCombinationAggregator,
                                         channels_for)
 from repro_torch.core.timeline import Timeline
+from repro_torch.kernels.count_le.ops import count_le
 from repro_torch.kernels.sample_attr.ops import (make_carry_update,
                                                  sample_attr_fold)
 from repro_torch.kernels.sample_clock.ops import sample_clock
@@ -344,25 +348,21 @@ def _count_le(ends, grid, cell, t, k_max: int):
     the times ``t`` [n] they share. ``searchsorted(side="right")``, but
     through the precomputed grid: locate the cell (with exact-comparison
     guards against division rounding), start from its prefix count, and
-    add at most ``k_max`` consecutive compares, all in one gather. All
-    comparisons are exact, so this is bit-equal to the numpy reference's
-    searchsorted. ``k_max = 0`` means the durations were too heavy-tailed
-    for a bounded window — use the binary search. Every step is one
-    torch operation over all workers, so launches do not grow with W."""
-    W, M = ends.shape
+    add at most ``k_max`` consecutive compares
+    (:func:`repro_torch.kernels.count_le.ops.count_le`: on a CUDA device
+    one launch of the ``count_le`` kernel, whose working set is its
+    output whatever ``k_max``; on the CPU the torch operations of its
+    ``ref.py``, one per step over all workers). All comparisons are
+    exact, so this is bit-equal to the numpy reference's searchsorted.
+    ``k_max = 0`` means the durations were too heavy-tailed for a
+    bounded window — use the binary search. Counts the worker-lanes
+    looked up (``lookup_lanes``) on the open record."""
+    W = ends.shape[0]
+    spans.count("lookup_lanes", W * t.shape[0])
     if k_max == 0:
         return torch.searchsorted(ends, t.expand(W, -1).contiguous(),
                                   right=True)
-    G = grid.shape[1] - 2
-    cw = cell[:, None]
-    g = torch.floor(t / cw).to(torch.int64)
-    g = g - (g.to(torch.float64) * cw > t).to(torch.int64)
-    g = g + ((g + 1).to(torch.float64) * cw <= t).to(torch.int64)
-    lo = torch.gather(grid, 1, g.clamp(0, G)).to(torch.int64)
-    pos = lo[:, :, None] + torch.arange(k_max, device=t.device)
-    e = torch.gather(ends, 1, pos.clamp(max=M - 1).reshape(W, -1))
-    hit = (pos < M) & (e.reshape(pos.shape) <= t[:, None])
-    return lo + hit.sum(dim=2)
+    return count_le(ends, grid, cell, t, k_max)
 
 
 def _interval(cnt, m_true):
@@ -548,7 +548,7 @@ def run_region_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
     frac = min(overhead_per_sample / period, 1.0) \
         if overhead_per_sample > 0.0 else 0.0
     with spans.record("region", seed=seed, workers=1,
-                      chunk_size=chunk_size), \
+                      chunk_size=chunk_size, lookup_window=dtl.grid_k), \
             spans.span("alea.pipeline", ranged=False):
         dev = dtl.device
         R = dtl.num_regions
@@ -832,7 +832,7 @@ def run_combo_pipeline(dtl: DeviceTimeline, spec: SensorSpec, *,
     counted = ("chunks", "miss_chunks") + (
         () if max_combinations is None else ("tail_folds",))
     with spans.record("combination", seed=seed, workers=W,
-                      chunk_size=chunk_size), \
+                      chunk_size=chunk_size, lookup_window=dtl.grid_k), \
             spans.fill_stats(stats, counters=counted,
                              seconds=dict(miss_seconds="alea.miss")), \
             spans.span("alea.pipeline", ranged=False):

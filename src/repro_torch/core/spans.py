@@ -40,8 +40,11 @@ The spans, by parent:
 
 Counters: ``chunks``, ``miss_chunks``, ``miss_rows`` (rows the miss path
 brings to the host: with ``miss_chunks``, the rows of one miss),
-``tail_folds`` and ``upload_bytes`` (with ``alea.upload.copy``, the
-upload's copy rate).
+``tail_folds``, ``upload_bytes`` (with ``alea.upload.copy``, the
+upload's copy rate) and ``lookup_lanes`` (worker-lanes looked up in the
+timeline's intervals). The record's ``lookup_window`` is the timeline's
+grid window ``grid_k``: the most ends one grid cell holds, the compares
+a lookup makes (0: the binary search).
 
 The determinism-critical modules only write records (:func:`span`,
 :func:`count`, :func:`record` without binding it, :func:`fill_stats`);
@@ -88,6 +91,7 @@ class ProfileTrace:
         self.seed = seed
         self.workers = workers
         self.chunk_size = chunk_size
+        self.lookup_window: int | None = None   # the timeline's grid_k
         self.profiled = _profiling()     # a torch profiler was recording
         self.table: dict[tuple[str, str | None], list[int]] = {}
         self.counters: dict[str, int] = {}
@@ -121,19 +125,25 @@ class ProfileTrace:
     def __repr__(self) -> str:
         return (f"ProfileTrace(id={self.id}, path={self.path!r}, "
                 f"seed={self.seed}, workers={self.workers}, "
+                f"lookup_window={self.lookup_window}, "
                 f"entries={len(self.table)}, counters={self.counters})")
 
 
 @contextlib.contextmanager
-def record(path: str, *, seed: int, workers: int, chunk_size: int):
+def record(path: str, *, seed: int, workers: int, chunk_size: int,
+           lookup_window: int | None = None):
     """Yield this thread's open record, or open one for one profile; a
-    record opened here is kept by :func:`recent` when it closes."""
+    record opened here is kept by :func:`recent` when it closes. A
+    ``lookup_window`` given is set on the record either way."""
     trace = _current.get()
     if trace is not None:
+        if lookup_window is not None:
+            trace.lookup_window = lookup_window
         yield trace
         return
     trace = ProfileTrace(path, seed=seed, workers=workers,
                          chunk_size=chunk_size)
+    trace.lookup_window = lookup_window
     token = _current.set(trace)
     try:
         yield trace

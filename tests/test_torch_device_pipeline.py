@@ -67,9 +67,12 @@ from repro_torch.core import sensors, threefry  # noqa: E402
 from repro_torch.core.timeline import (RegionCost, Timeline,  # noqa: E402
                                        synthesize)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.count_le import ops as count_le_ops  # noqa: E402
+from repro_torch.kernels.count_le.ref import count_le_ref  # noqa: E402
 from repro_torch.kernels.sample_clock import ops as clock_ops  # noqa: E402
 from repro_torch.kernels.sample_clock.ref import (  # noqa: E402
     sample_clock_ref)
+from _torch_count_le_cases import lookup_case  # noqa: E402
 
 _SENSORS = ("instant", "rapl", "ina231")
 _SPEC = {"instant": "InstantTraceSensor", "rapl": "RaplTraceSensor",
@@ -346,6 +349,99 @@ def test_sample_clock_kernel_bit_equal_to_cpu(cuda_device, seed, k, c,
     assert torch.equal(gv.cpu(), wv)
     assert torch.equal(gv, got < t_end)
     assert torch.equal(gt, torch.clamp_max(got, t_end))
+
+
+# ---------------------------------------------------------------------------
+# The interval lookup: the grid route's torch operations (count_le's ref.py)
+# are searchsorted(side="right"); on the CPU _count_le runs them unchanged.
+# ---------------------------------------------------------------------------
+
+def _searchsorted(dtl, t):
+    W = dtl.num_workers
+    return torch.searchsorted(dtl.ends, t.expand(W, -1).contiguous(),
+                              right=True)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_count_le_ref_equals_searchsorted(k):
+    """Windows of 1 to 5 ends a grid cell, three ragged workers, times on
+    ends, beside them and on grid points."""
+    dtl, t = lookup_case(3, k, seed=k)
+    assert dtl.grid_k == k
+    got = count_le_ref(dtl.ends, dtl.grid, dtl.cell, t, dtl.grid_k)
+    assert got.dtype == torch.int64 and got.shape == (3, t.numel())
+    assert torch.equal(got, _searchsorted(dtl, t))
+
+
+@pytest.mark.parametrize("workers", [1, 3, 4, 16])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_count_le_ref_equals_jax(workers, k):
+    """ref.py's counts against the JAX reference's ``_count_le``, worker by
+    worker, on the inputs the card's kernel test takes
+    (``tests/test_torch_count_le.py``: the same seed; its 4096 times are
+    the first of these 4099), so the kernel, bit-equal to ref.py there,
+    is held to the reference here."""
+    dtl, t = lookup_case(workers, k, n=4099, seed=workers * 10 + k)
+    assert dtl.grid_k == k
+    got = count_le_ref(dtl.ends, dtl.grid, dtl.cell, t, dtl.grid_k)
+    with jax.enable_x64(True):
+        tj = jnp.asarray(t.numpy())
+        want = np.stack([np.asarray(rdp._count_le(
+            jnp.asarray(dtl.ends[w].numpy()), jnp.asarray(dtl.grid[w].numpy()),
+            jnp.float64(float(dtl.cell[w])), tj, dtl.grid_k))
+            for w in range(workers)])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_count_le_cpu_route_is_the_ref_and_loads_no_library(monkeypatch):
+    """On the CPU, _count_le with a grid window is ref.py's operations,
+    bit for bit: no library is built or loaded and nothing is launched."""
+    real = _build.load
+
+    def refuse(name):
+        if name == "count_le":
+            raise AssertionError("the CPU route loaded count_le")
+        return real(name)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    count_le_ops._kernel.cache_clear()
+    before = count_le_ops.count_le.launches
+    dtl, t = lookup_case(4, 5, seed=9)
+    got = dp._count_le(dtl.ends, dtl.grid, dtl.cell, t, dtl.grid_k)
+    assert torch.equal(got, count_le_ref(dtl.ends, dtl.grid, dtl.cell, t,
+                                         dtl.grid_k))
+    assert torch.equal(got, _searchsorted(dtl, t))
+    assert count_le_ops.count_le.launches == before
+    assert count_le_ops._kernel.cache_info().currsize == 0
+
+
+def test_count_le_search_route_is_untouched(monkeypatch):
+    """k_max = 0 (heavy-tailed durations) takes torch.searchsorted and
+    never the grid route."""
+    def refuse(*a):
+        raise AssertionError("the search route went through count_le")
+
+    monkeypatch.setattr(dp, "count_le", refuse)
+    dtl, t = lookup_case(2, 3, seed=4)
+    got = dp._count_le(dtl.ends, dtl.grid, dtl.cell, t, 0)
+    assert torch.equal(got, _searchsorted(dtl, t))
+
+
+def test_count_le_refuses_other_devices():
+    dtl, t = lookup_case(1, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        count_le_ops.count_le(dtl.ends, dtl.grid, dtl.cell,
+                              t.to("meta"), 1)
+
+
+def test_count_le_c_signature_matches_declared_argtypes():
+    src = Path(count_le_ops.__file__).with_name("count_le.cu").read_text()
+    m = re.search(r"int count_le\(([^)]*)\)", src)
+    scalars = {"int64_t": ctypes.c_int64, "int": ctypes.c_int}
+    got = tuple(ctypes.c_void_p if "*" in p else
+                scalars[" ".join(p.split()).rsplit(" ", 1)[0]]
+                for p in m.group(1).split(","))
+    assert got == count_le_ops._ARGTYPES
 
 
 # ---------------------------------------------------------------------------

@@ -101,6 +101,34 @@ def test_a_profile_leaves_one_record(path, timelines):
         assert per["alea.miss_flag"]["calls"] == chunks
 
 
+@pytest.mark.parametrize("path", ["region", "combination"])
+@pytest.mark.parametrize("sensor,full", [("instant", 1), ("rapl", 2),
+                                         ("ina231", 2)])
+def test_the_record_holds_the_lookup_window_and_lanes(path, sensor, full,
+                                                      timelines):
+    """``lookup_window`` is the uploaded timeline's grid window, set on the
+    record the entry opened before the upload; ``lookup_lanes`` counts
+    every worker-lane looked up: the sensor's full-chunk lookups on every
+    pass over a chunk (misses replay theirs) and RAPL's one-lane lookup
+    of the sample before the chunk."""
+    tls = timelines[:1] if path == "region" else timelines
+    prof = EnergyProfiler(period=PERIOD, jitter=JITTER, seed=3, device="cpu")
+    kw = dict(sensor=sensor, chunk_size=CHUNK, pipeline="device")
+    if path == "region":
+        prof.profile_timeline_streaming(tls[0], **kw)
+    else:
+        prof.profile_multiworker_streaming(tls, **kw)
+    trace = prof.last_trace
+    W = len(tls)
+    assert trace.lookup_window == dp.DeviceTimeline.from_timelines(
+        tls, device="cpu").grid_k > 0
+    passes = trace.counters["chunks"] + trace.counters.get("miss_chunks", 0)
+    head = W if sensor == "rapl" else 0
+    assert trace.counters["lookup_lanes"] == passes * (full * W * CHUNK
+                                                       + head)
+    assert f"lookup_window={trace.lookup_window}" in repr(trace)
+
+
 def test_stats_are_read_from_the_record(timelines):
     """``run_combo_pipeline(stats=...)``, called with no record open,
     opens its own and fills ``stats`` from it."""
