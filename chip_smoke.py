@@ -14,6 +14,14 @@ runs these phases, and fails (non-zero exit) if any check fails:
               operations and searchsorted bit for bit (W in {1, 4, 16},
               grid windows of 1 to 5 ends; then W = 4 workers of 2^20
               intervals, as the main path's), one launch a lookup;
+   trace_sensor — the trace sensor's kernel equals the CPU's torch
+              operations bit for bit (readings and RAPL carry) on chunks
+              of 65536 lanes at the cells' shapes (2^20 intervals a
+              worker: RAPL W = 1 and 16, INA231 W = 4, all D = 3; the
+              search route), the run's
+              first chunk and one holding the update edges where t / up
+              and t * (1 / up) quantise apart; the card's torch divides
+              by a scalar as its ref.py does; kernel and plain ms;
 2. parity   — ``EnergyProfiler.profile_timeline_streaming(pipeline=
               "device")`` on the GPU against the port's numpy oracle for
               every trace sensor at D=1 and D=3, ~10^6 samples each;
@@ -55,8 +63,8 @@ runs these phases, and fails (non-zero exit) if any check fails:
               yi-6b's train_4k step on 8 chips, 150 steps synthesized,
               the one-shot profile, then the device pipeline on the card
               (``sample_attr``, counters set to 0 just before and read
-              just after: under RAPL three count_le launches a chunk,
-              under instant one) against the same pipeline on the CPU at 10 ms
+              just after: under RAPL one count_le and one trace_sensor
+              launch a chunk, under instant one count_le) against the same pipeline on the CPU at 10 ms
               (counts equal, sums rtol 1e-9), two card runs at 100 µs
               (instant sensor, jitter 20 µs; bitwise equal, samples/s),
               the energy-optimal plan over the card's six hotspots equal
@@ -194,8 +202,9 @@ runs these phases, and fails (non-zero exit) if any check fails:
    serve steps with 0 float64 ops, 0 widenings and 0 host waits, the
    region step and the miss fold with no host wait, the combination
    step with exactly one (its miss flag), every carry leaf in place,
-   ``sample_attr`` launched on every device-pipeline path, and three
-   ``count_le`` launches in each RAPL chunk step (none in the fold).
+   ``sample_attr`` launched on every device-pipeline path, and one
+   ``count_le`` and one ``trace_sensor`` launch in each RAPL chunk step
+   (none in the fold).
 
 Each phase's seconds are printed on a line of their own. The line
 before the last is a JSON object listing every kernel; the last
@@ -342,8 +351,9 @@ def launch_counters():
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.sample_attr.ops import sample_attr_fold
     from repro_torch.kernels.sample_clock.ops import sample_clock
-    return (sample_attr_fold, sample_clock, count_le, flash_attention,
-            rmsnorm)
+    from repro_torch.kernels.trace_sensor.ops import trace_sensor
+    return (sample_attr_fold, sample_clock, count_le, trace_sensor,
+            flash_attention, rmsnorm)
 
 
 # ---------------------------------------------------------------------------
@@ -484,6 +494,7 @@ def sharding_phase(dev):
     bitwise = torch.equal(got, want)
     rel = _max_rel(got, want)
     check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
+                       "trace_sensor": 0,
                        "flash_attention": cfg.n_layers, "rmsnorm": 0},
           f"sharding (a): launches in the sharded prefill {launches}")
     check(tuple(got.shape) == (B, 1, cfg.vocab_size)
@@ -1107,6 +1118,110 @@ def count_le_phase():
         f"{n} lanes each)")
 
 
+# The trace sensor's chunks at the cells' shapes: (cell, sensor, workers,
+# rails, intervals a worker, sample period, binary-search route). Every
+# horizon is ~10^5 s, as the benchmark's; the late chunk starts at 2·10^4 s,
+# in the binade [2^14, 2^15) s where the update edges at which t / up and
+# t * (1 / up) quantise apart are densest (about one a hundred).
+SENSOR_CASES = (("region-bb4096", "rapl", 1, True, 2 ** 20, 1e-3, False),
+                ("combo-w16", "rapl", 16, True, 2 ** 20, 1e-3, False),
+                ("arm-w4-iter256", "ina231", 4, True, 2 ** 20, 280e-6,
+                 False),
+                ("search route", "rapl", 4, True, 2 ** 16, 1e-3, True))
+
+
+def trace_sensor_phase():
+    """The trace_sensor kernel against the CPU's torch operations (its
+    ref.py), bit for bit (readings and RAPL carry, int64 views), on
+    chunks of 65536 lanes at the cells' shapes (:data:`SENSOR_CASES`):
+    the run's first chunk (no carry) and a late chunk whose times hold
+    the update edges. One launch a call, the
+    input carry unwritten; the card's torch divides a tensor by a scalar
+    as ref.py writes it. Each cell's late chunk is timed beside its plain
+    version (CUDA events, launches back to back). Returns the region's and
+    the ARM cell's late chunks (CPU arguments) for :func:`sensor_rows`."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.trace_sensor.ops import trace_sensor
+    from repro_torch.kernels.trace_sensor.ref import trace_sensor_ref
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_trace_sensor_cases import (UP, bits, clock_times,
+                                           edge_times, sensor_args,
+                                           sensor_timeline)
+    t = torch.from_numpy(edge_times(2e4, 2.001e4))
+    check(torch.equal(torch.floor(t.cuda() / UP + 1e-6).cpu(),
+                      torch.floor(t * (1.0 / UP) + 1e-6))
+          and not torch.equal(torch.floor(t / UP + 1e-6),
+                              torch.floor(t * (1.0 / UP) + 1e-6)),
+          f"trace_sensor: the card's torch divides t / up as t * (1 / up) "
+          f"on {t.numel()} update edges")
+    c = 65536
+    keep = {}
+    for cell, kind, workers, rails, m, period, search in SENSOR_CASES:
+        dtl = sensor_timeline(workers, rails, search, m=m, scale=1e8 / m,
+                              seed=workers)
+        what = (f"trace_sensor {cell} ({kind}, W={workers}, D="
+                f"{dtl.num_domains}, m={m}, window {dtl.grid_k})")
+        for t0 in (0.0, 2e4):
+            t = clock_times(c, t0, period, seed=m + workers,
+                            edges=edge_times(t0, t0 + c * period))
+            prev = -1.0 if t0 == 0.0 else float(
+                np.floor((t0 - period) / UP + 1e-6) * UP)
+            args = sensor_args(kind, dtl, t, prev)
+            want, want_carry = trace_sensor_ref(*args)
+            gpu = [a.cuda() if torch.is_tensor(a) else a for a in args]
+            carry_in = gpu[5].clone()
+            before = trace_sensor.launches
+            got, carry = trace_sensor(*gpu)
+            torch.cuda.synchronize()
+            check(trace_sensor.launches - before == 1,
+                  f"{what}: one kernel launch a chunk")
+            check(torch.equal(bits(got), bits(want))
+                  and torch.equal(bits(carry), bits(want_carry)),
+                  f"{what} t0={t0:.1f}: kernel readings and carry equal "
+                  f"ref.py's")
+            check(torch.equal(bits(gpu[5]), bits(carry_in)),
+                  f"{what}: the input carry is not written")
+        log(f"{what}: kernel "
+            f"{time_ms(lambda: trace_sensor(*gpu)):.5f} ms, plain "
+            f"{time_ms(lambda: trace_sensor_ref(*gpu)):.5f} ms a chunk of "
+            f"{c} lanes (events, back to back)")
+        if cell in ("region-bb4096", "arm-w4-iter256"):
+            keep[cell] = args
+        del dtl, gpu
+    log(f"trace_sensor: kernel readings and RAPL carry equal the CPU's "
+        f"torch operations bit for bit ({len(SENSOR_CASES)} shapes x 2 "
+        f"chunks of {c} lanes)")
+    return keep
+
+
+def sensor_rows(chunks):
+    """The trace_sensor kernel's device time on the region's and the ARM
+    cell's chunks (from :func:`trace_sensor_phase`) beside its bound (the
+    bytes it must move at HBM bandwidth: the times, the valid flags or the
+    counts, the readings) and the device time of its plain version's
+    kernels on the card (torch.profiler)."""
+    import torch
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels.trace_sensor.ops import trace_sensor
+    from repro_torch.kernels.trace_sensor.ref import trace_sensor_ref
+    for cell, args in chunks.items():
+        gpu = [a.cuda() if torch.is_tensor(a) else a for a in args]
+        kind, t, cnt, out = gpu[0], gpu[2], gpu[3], trace_sensor(*gpu)[0]
+        ms, _ = device_ms(lambda: trace_sensor(*gpu),
+                          match=("ts_rapl", "ts_ina231"), iters=100)
+        plain_ms, plain = device_ms(lambda: trace_sensor_ref(*gpu))
+        moved = (t.numel() * (9 if kind == "rapl" else 8)
+                 + (cnt.numel() * 8 if kind == "ina231" else 0)
+                 + out.numel() * 8)
+        bound_ms = moved / H100_SXM.hbm_bandwidth * 1e3
+        log(f"sensor kernel: trace_sensor on the {cell} chunk ({kind}, "
+            f"out {tuple(out.shape)}): device {_fmt(ms)} ms, bound "
+            f"{bound_ms:.6f} ms ({moved} bytes), plain version "
+            f"{_fmt(plain_ms)} ms of device time in {len(plain)} kernel "
+            f"names")
+
+
 def parity_timeline(domains, seed=2):
     """64 regions x 16 invocations x 64 steps = 65536 intervals, t_exec
     ~ 10^3 s, so 1 ms sampling (RAPL's floor) gives ~10^6 samples;
@@ -1403,6 +1518,7 @@ def full_phase(tl):
     from repro_torch.kernels.count_le.ops import count_le
     from repro_torch.kernels.sample_attr import ops
     from repro_torch.kernels.sample_clock.ops import sample_clock
+    from repro_torch.kernels.trace_sensor.ops import trace_sensor
     target = 102_000_000
     period = tl.t_exec / target
     jitter = 0.2 * period
@@ -1424,8 +1540,10 @@ def full_phase(tl):
     launches = ops.sample_attr_fold.launches
     clocks = sample_clock.launches
     lookups = count_le.launches
+    sensed = trace_sensor.launches
     others = {c.__name__: c.launches for c in counters
-              if c not in (ops.sample_attr_fold, sample_clock, count_le)}
+              if c not in (ops.sample_attr_fold, sample_clock, count_le,
+                           trace_sensor)}
     peak = torch.cuda.max_memory_allocated()
     n = int(est.n_total)
     window = prof.last_trace.lookup_window
@@ -1444,6 +1562,8 @@ def full_phase(tl):
     check(window > 0 and lookups == n_chunks,
           f"full: count_le launches {lookups} == chunks {n_chunks} "
           f"(lookup window {window})")
+    # instant: the power at the sample's interval, no trace_sensor launch.
+    check(sensed == 0, f"full: trace_sensor launches {sensed} == 0")
     check(not any(others.values()), f"full: other kernels launched {others}")
     check(bool((est.table.pow_hat > 0).all()) and all(
         bool(torch.isfinite(torch.as_tensor(getattr(est.table, f))).all())
@@ -1452,7 +1572,8 @@ def full_phase(tl):
     log(f"full: {n} samples in {n_chunks} chunks, {secs:.3f} s "
         f"({n / secs:.4e} samples/s), peak device memory "
         f"{peak / 2 ** 20:.1f} MiB, sample_attr launches {launches}, "
-        f"count_le launches {lookups}, regions attributed {len(est.table)}")
+        f"count_le launches {lookups}, trace_sensor launches {sensed} "
+        f"(instant sensor), regions attributed {len(est.table)}")
     check(prof.last_trace.counters["chunks"] == n_chunks,
           "full: the profile's record counts its chunks")
     log_stages("full", prof.last_trace)
@@ -1699,6 +1820,7 @@ def combo_full_phase(tl):
     from repro_torch.kernels.count_le.ops import count_le
     from repro_torch.kernels.sample_attr import ops
     from repro_torch.kernels.sample_clock.ops import sample_clock
+    from repro_torch.kernels.trace_sensor.ops import trace_sensor
     period = tl.t_exec / COMBO_SAMPLES
     jitter = 0.2 * period
     chunk = 65536
@@ -1725,8 +1847,10 @@ def combo_full_phase(tl):
     launches = ops.sample_attr_fold.launches
     clocks = sample_clock.launches
     lookups = count_le.launches
+    sensed = trace_sensor.launches
     others = {c.__name__: c.launches for c in counters
-              if c not in (ops.sample_attr_fold, sample_clock, count_le)}
+              if c not in (ops.sample_attr_fold, sample_clock, count_le,
+                           trace_sensor)}
     peak = torch.cuda.max_memory_allocated()
     est, rows = agg.estimates(dtl.t_end, tl.names)
     distinct = len(agg.interner)
@@ -1750,6 +1874,8 @@ def combo_full_phase(tl):
     check(dtl.grid_k > 0 and lookups == chunks + misses,
           f"combo-full: count_le launches {lookups} == chunks {chunks} + "
           f"miss replays {misses} (lookup window {dtl.grid_k})")
+    # instant: no trace_sensor launch, in a chunk or in a replay.
+    check(sensed == 0, f"combo-full: trace_sensor launches {sensed} == 0")
     check(not any(others.values()),
           f"combo-full: other kernels launched {others}")
     check(misses < chunks / 2, f"combo-full: {misses} of {chunks} chunks "
@@ -1764,7 +1890,8 @@ def combo_full_phase(tl):
         f"chunks ({stats['miss_seconds']:.3f} s of host wall in the miss "
         f"path), {distinct} combinations, table capacity {cap}, "
         f"{pack[2]} key words ({pack[0]} bits a region); sample_attr "
-        f"launches {launches}, count_le {lookups}; peak device memory "
+        f"launches {launches}, count_le {lookups}, trace_sensor {sensed} "
+        f"(instant sensor); peak device memory "
         f"{peak / 2 ** 20:.1f} MiB; timelines built and uploaded in "
         f"{build_s:.1f} s")
     log_stages("combo-full", trace)
@@ -2135,8 +2262,9 @@ def energy_phase(dev):
             tl, sensor="rapl", pipeline="device")
         secs = time.perf_counter() - t0
     coarse = {c.__name__: c.launches for c in counters}
-    # RAPL: three lookups a chunk (the sample times, their quantised
-    # times and the one-lane chain head); none on the search route.
+    # RAPL: one count_le lookup a chunk (the sample times; none on the
+    # search route) and one trace_sensor launch, which looks the quantised
+    # times and the chain head up itself.
     window = coarse_prof.last_trace.lookup_window
     with captured_aggregators() as cpu_aggs:
         cpu = EnergyProfiler(period=ENERGY_PERIOD, device="cpu"
@@ -2149,9 +2277,12 @@ def energy_phase(dev):
     check(coarse["sample_clock"] == chunks,
           f"energy (a): sample_clock launches {coarse['sample_clock']} "
           f"== chunks {chunks}")
-    check(coarse["count_le"] == (3 * chunks if window else 0),
-          f"energy (a): count_le launches {coarse['count_le']} == 3 a "
-          f"chunk x {chunks} (lookup window {window})")
+    check(coarse["count_le"] == (chunks if window else 0),
+          f"energy (a): count_le launches {coarse['count_le']} == chunks "
+          f"{chunks} (lookup window {window})")
+    check(coarse["trace_sensor"] == chunks,
+          f"energy (a): trace_sensor launches {coarse['trace_sensor']} == "
+          f"chunks {chunks}")
     check(card.n_total == cpu.n_total, "energy (a): n")
     got = card_aggs[0].channel_statistics()
     want = cpu_aggs[0].channel_statistics()
@@ -2161,8 +2292,9 @@ def energy_phase(dev):
           f"energy (a): sums rtol {PIPELINE_RTOL}")
     log(f"energy (a): {card.n_total} samples at {ENERGY_PERIOD * 1e3:g} ms "
         f"(rapl) in {secs:.3f} s on the card, {chunks} chunks, "
-        f"{coarse['sample_attr_fold']} sample_attr and {coarse['count_le']} "
-        f"count_le launches (lookup window {window}); counts equal to the "
+        f"{coarse['sample_attr_fold']} sample_attr, {coarse['count_le']} "
+        f"count_le and {coarse['trace_sensor']} trace_sensor launches "
+        f"(lookup window {window}); counts equal to the "
         f"CPU's, sums rtol {PIPELINE_RTOL}")
 
     fine = EnergyProfiler(period=ENERGY_FINE_PERIOD,
@@ -2185,12 +2317,15 @@ def energy_phase(dev):
               == r["launches"]["sample_clock"] for r in runs),
           f"energy (b): sample_attr and sample_clock launches == chunks "
           f"{fine_chunks}")
-    # instant: one lookup a chunk on the grid route.
+    # instant: one lookup a chunk on the grid route, no trace_sensor.
     check(all(r["launches"]["count_le"] == (fine_chunks if window else 0)
               for r in runs),
           f"energy (b): count_le launches "
           f"{[r['launches']['count_le'] for r in runs]} == chunks "
           f"{fine_chunks} (lookup window {window})")
+    check(all(r["launches"]["trace_sensor"] == 0 for r in runs),
+          f"energy (b): trace_sensor launches "
+          f"{[r['launches']['trace_sensor'] for r in runs]} == 0 (instant)")
     check(_agg_bits_equal(runs[0]["agg"], runs[1]["agg"]),
           "energy (b): two card runs bitwise equal")
     log(f"energy (b): {runs[0]['n']} samples at "
@@ -2338,12 +2473,14 @@ def recompile_guard(dev, served):
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.sample_attr import ops as sops
     from repro_torch.kernels.sample_clock import ops as cops
+    from repro_torch.kernels.trace_sensor import ops as tops
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.serve.engine import (Engine, Request, ServeConfig,
                                           _spec_step_fns, _step_fns)
     for name, mod in (("sample_attr", sops), ("sample_clock", cops),
-                      ("count_le", lops), ("flash_attention", fops),
+                      ("count_le", lops), ("trace_sensor", tops),
+                      ("flash_attention", fops),
                       ("rmsnorm", rops)):
         info = mod._kernel.cache_info()
         log(f"analysis (c): {name} library loads: {info.misses} "
@@ -2432,12 +2569,13 @@ def analysis_phase(dev, served):
             check(r.launches.get("sample_clock", 0) == clocks,
                   f"analysis (b): {r.name}: sample_clock launches "
                   f"{r.launches.get('sample_clock', 0)} != {clocks}")
-            # A RAPL chunk step: three lookups on the fixtures' grid
-            # route (lookup window 3); the fold looks nothing up.
-            lookups = 3 * clocks
-            check(r.launches.get("count_le", 0) == lookups,
-                  f"analysis (b): {r.name}: count_le launches "
-                  f"{r.launches.get('count_le', 0)} != {lookups}")
+            # A RAPL chunk step: one count_le lookup on the fixtures' grid
+            # route (lookup window 3) and one trace_sensor launch; the fold
+            # does neither.
+            for name in ("count_le", "trace_sensor"):
+                check(r.launches.get(name, 0) == clocks,
+                      f"analysis (b): {r.name}: {name} launches "
+                      f"{r.launches.get(name, 0)} != {clocks}")
         if "/region_run/" in r.name or "/combo_fold/" in r.name:
             check(r.host_callbacks == 0, f"analysis (b): {r.render()}")
         if "/combo_step/" in r.name:
@@ -2595,6 +2733,7 @@ def model_phase(dev, arch=MODEL_ARCH, *, depth=None, steps=MODEL_DECODE,
           f"model {arch}: flash launches per prefill {after_prefill} == "
           f"{cfg.n_layers}")
     check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
+                       "trace_sensor": 0,
                        "flash_attention": cfg.n_layers, "rmsnorm": 0},
           f"model {arch}: launches in prefill + decode {launches}")
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
@@ -2762,6 +2901,7 @@ def audio_phase(dev):
         loss = {impl: float(M.loss_fn(p, cfg, batch, attn_impl=impl)[0])
                 for impl in ("flash", "full")}
     check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
+                       "trace_sensor": 0,
                        "flash_attention": cfg.n_layers, "rmsnorm": 0},
           f"audio: launches {launches}")
     check(tuple(logits.shape) == (B, S, cfg.vocab_size)
@@ -2981,6 +3121,7 @@ def recurrent_model_phase(dev, arch):
     check(after_prefill == n_attn, f"model {arch}: flash launches per "
           f"prefill {after_prefill} == {n_attn}")
     check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
+                       "trace_sensor": 0,
                        "flash_attention": n_attn, "rmsnorm": 0},
           f"model {arch}: launches in prefill + decode {launches}")
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
@@ -3240,6 +3381,7 @@ def serve_phase(dev, arch=MODEL_ARCH, *, full=True):
     check(n_tok == SERVE_REQUESTS * SERVE_NEW,
           f"serve {arch}: {n_tok} tokens out")
     check(launches == {"sample_attr_fold": 0, "sample_clock": 0, "count_le": 0,
+                       "trace_sensor": 0,
                        "flash_attention": 0, "rmsnorm": 0},
           f"serve {arch}: launches {launches}")
     by = est.by_name()
@@ -3941,8 +4083,8 @@ def train_phase(dev, arch=MODEL_ARCH):
         check(not sampled, f"{tag} (a): samples in {sampled}")
         check(not inner_stored, f"{tag} (a): marker stored {inner_stored}")
         check(launches == {"sample_attr_fold": 0, "sample_clock": 0,
-                           "count_le": 0, "flash_attention": 0,
-                           "rmsnorm": 0},
+                           "count_le": 0, "trace_sensor": 0,
+                           "flash_attention": 0, "rmsnorm": 0},
               f"{tag} (a): launches {launches}")
         log(f"{tag} (a): launcher main: {arch} {n_params} parameters "
             f"(float32 masters), B={TRAIN_BATCH} S={TRAIN_SEQ}, "
@@ -4188,8 +4330,8 @@ def main():
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
-    names = ["sample_attr", "sample_clock", "count_le", "flash_attention",
-             "rmsnorm", "stream_marker"]
+    names = ["sample_attr", "sample_clock", "count_le", "trace_sensor",
+             "flash_attention", "rmsnorm", "stream_marker"]
     t0 = time.perf_counter()
     _build.build(names)
     log(f"build: {', '.join(names)} in {time.perf_counter() - t0:.2f} s "
@@ -4204,6 +4346,8 @@ def main():
         clock_phase()
     with phase("count_le"):
         count_le_phase()
+    with phase("trace_sensor"):
+        sensor_chunks = trace_sensor_phase()
     with phase("parity"):
         parity_phase()
     with phase("combo-parity"):
@@ -4234,6 +4378,8 @@ def main():
         rmsnorm_row = rmsnorm_phase(dev)
     with phase("breakdown"):
         fold = breakdown_phase(tl)
+        sensor_rows(sensor_chunks)
+        del sensor_chunks
         ech = energy.pop("chunk")
         energy_fold = fold_row(f"energy chunk k={ech.k}", ech.R, ech.C,
                                ech.ids, ech.pows, ech.valid)

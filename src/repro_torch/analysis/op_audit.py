@@ -248,8 +248,10 @@ def _launch_counters() -> dict:
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.sample_attr.ops import sample_attr_fold
     from repro_torch.kernels.sample_clock.ops import sample_clock
+    from repro_torch.kernels.trace_sensor.ops import trace_sensor
     return {"sample_attr_fold": sample_attr_fold,
             "sample_clock": sample_clock, "count_le": count_le,
+            "trace_sensor": trace_sensor,
             "flash_attention": flash_attention, "rmsnorm": rmsnorm}
 
 

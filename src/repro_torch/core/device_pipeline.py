@@ -47,7 +47,9 @@ explicit rounding, so a chunk's times on the GPU equal the CPU's bit for
 bit. The interval lookup's grid route is likewise one launch of the
 ``count_le`` kernel on a CUDA device and its ``ref.py`` torch operations
 on the CPU (:mod:`repro_torch.kernels.count_le`), equal counts either
-way.
+way, and so is the RAPL and INA231 sensor stage: one launch of the
+``trace_sensor`` kernel, which looks its own times up, or its ``ref.py``
+(:mod:`repro_torch.kernels.trace_sensor`), equal readings either way.
 
 **Power-rail domain axis.** Multi-domain timelines carry per-rail energy
 integrals ``[W, D, ·]``; each rail applies the sensor's semantics to its
@@ -90,6 +92,9 @@ from repro_torch.kernels.count_le.ops import count_le
 from repro_torch.kernels.sample_attr.ops import (make_carry_update,
                                                  sample_attr_fold)
 from repro_torch.kernels.sample_clock.ops import sample_clock
+from repro_torch.kernels.trace_sensor.ops import trace_sensor
+from repro_torch.kernels.trace_sensor.ref import interval as _interval
+from repro_torch.kernels.trace_sensor.ref import take as _take
 
 __all__ = [
     "DeviceTimeline", "PipelineResult", "chunk_sample_times",
@@ -355,43 +360,10 @@ def _count_le(ends, grid, cell, t, k_max: int):
     ``ref.py``, one per step over all workers). All comparisons are
     exact, so this is bit-equal to the numpy reference's searchsorted.
     ``k_max = 0`` means the durations were too heavy-tailed for a
-    bounded window — use the binary search. Counts the worker-lanes
-    looked up (``lookup_lanes``) on the open record."""
-    W = ends.shape[0]
-    spans.count("lookup_lanes", W * t.shape[0])
-    if k_max == 0:
-        return torch.searchsorted(ends, t.expand(W, -1).contiguous(),
-                                  right=True)
+    bounded window: ``count_le`` then takes the binary search. Counts the
+    worker-lanes looked up (``lookup_lanes``) on the open record."""
+    spans.count("lookup_lanes", ends.shape[0] * t.shape[0])
     return count_le(ends, grid, cell, t, k_max)
-
-
-def _interval(cnt, m_true):
-    """Interval index ``clip(cnt, 0, m - 1)`` per worker (``cnt`` [W, n],
-    ``m_true`` [W])."""
-    return torch.minimum(cnt.clamp(min=0),
-                         (m_true - 1).to(torch.int64)[:, None])
-
-
-def _take(a, idx):
-    """``a[w, ..., idx[w, i]]``: a per-worker gather along the interval
-    axis of ``a`` [W, M] or [W, D, M] (``idx`` [W, n]) → [W, n] or
-    [W, D, n]; the rails of a worker share its indices."""
-    if a.ndim == 2:
-        return torch.gather(a, 1, idx)
-    return torch.gather(a, 2, idx[:, None, :].expand(-1, a.shape[1], -1))
-
-
-def _energy_at_cnt(bounds, eint, powers, m_true, x, cnt):
-    """Exact E(x) for piecewise-constant power (device twin of
-    ``sensors._TraceSensorBase._energy_at``) given ``cnt = #(ends ≤ x)``
-    [W, n]; ``bounds = [0, ends...]`` makes the bounds index
-    ``clip(cnt)``. Scalar substrates give [W, n], multi-rail ones
-    [W, D, n]."""
-    idx = _interval(cnt, m_true)
-    dx = x - torch.gather(bounds, 1, idx)
-    if eint.ndim == 3:
-        dx = dx[:, None, :]
-    return _take(eint, idx) + dx * _take(powers, idx)
 
 
 def _sensor_powers(spec: SensorSpec, arrs, t, cnt, valid, prev,
@@ -405,37 +377,27 @@ def _sensor_powers(spec: SensorSpec, arrs, t, cnt, valid, prev,
     integral, sharing its worker's interval count (rails share the
     clock). ``prev`` is one 0-d f64 tensor for every worker and rail
     (< 0: no sample taken yet): they share the sample clock, so the RAPL
-    differencing chain has one prev time whatever W or D.
+    differencing chain has one prev time whatever W or D. RAPL and
+    INA231 go through :func:`repro_torch.kernels.trace_sensor.ops.
+    trace_sensor` (on a CUDA device one launch of the ``trace_sensor``
+    kernel, which looks its own times up; on the CPU the torch
+    operations of its ``ref.py``); the record counts the worker-lanes
+    read (``sensor_lanes``) and looked up (``lookup_lanes``: RAPL's
+    quantised times and its chain head, INA231's window starts).
     """
     ends, bounds, eint, powers, rids, m_true, grid, cell = arrs
-
-    def e_at(x, cnt_x=None):
-        if cnt_x is None:
-            cnt_x = _count_le(ends, grid, cell, x, k_max)
-        return _energy_at_cnt(bounds, eint, powers, m_true, x, cnt_x)
-
     if spec.kind == "instant":
         return _take(powers, _interval(cnt, m_true)), prev
-    if spec.kind == "rapl":
-        up = spec.update_period
-        tq = torch.floor(t / up + 1e-6) * up
-        # The prev chain is tq shifted by one sample, so E(prev) is e_q
-        # shifted by one lane — one energy pass instead of two; only the
-        # chain head (carry prev, or tq[0] - up on the very first sample)
-        # needs its own tiny lookup.
-        prev0 = torch.where(prev < 0.0, torch.clamp_min(tq[0] - up, 0.0),
-                            prev).reshape(1)
-        e_q = e_at(tq)
-        e_prev = torch.cat([e_at(prev0), e_q[..., :-1]], dim=-1)
-        dt = torch.clamp_min(tq - torch.cat([prev0, tq[:-1]]), up)
-        new_prev = torch.where(valid, tq, -math.inf).max()
-        new_prev = torch.where(valid.any(), new_prev, prev)
-        return (e_q - e_prev) / dt, new_prev
-    if spec.kind == "ina231":
-        lo = torch.clamp_min(t - spec.window, 0.0)
-        span = torch.clamp_min(t - lo, 1e-12)
-        return (e_at(t, cnt) - e_at(lo)) / span, prev
-    raise ValueError(f"unknown trace sensor kind: {spec.kind!r}")
+    if spec.kind not in ("rapl", "ina231"):
+        raise ValueError(f"unknown trace sensor kind: {spec.kind!r}")
+    rapl = spec.kind == "rapl"
+    W, c = cnt.shape
+    spans.count("sensor_lanes", W * c)
+    spans.count("lookup_lanes", W * c + (W if rapl else 0))
+    return trace_sensor(spec.kind,
+                        spec.update_period if rapl else spec.window, t, cnt,
+                        valid, prev, ends, bounds, eint, powers, m_true, grid,
+                        cell, k_max)
 
 
 def _chunk_samples(dtl: DeviceTimeline, spec: SensorSpec, root, u0: float,

@@ -41,8 +41,9 @@ The spans, by parent:
 Counters: ``chunks``, ``miss_chunks``, ``miss_rows`` (rows the miss path
 brings to the host: with ``miss_chunks``, the rows of one miss),
 ``tail_folds``, ``upload_bytes`` (with ``alea.upload.copy``, the
-upload's copy rate) and ``lookup_lanes`` (worker-lanes looked up in the
-timeline's intervals). The record's ``lookup_window`` is the timeline's
+upload's copy rate), ``lookup_lanes`` (worker-lanes looked up in the
+timeline's intervals) and ``sensor_lanes`` (worker-lanes the RAPL or
+INA231 sensor read, W · c a chunk). The record's ``lookup_window`` is the timeline's
 grid window ``grid_k``: the most ends one grid cell holds, the compares
 a lookup makes (0: the binary search).
 

@@ -10,7 +10,8 @@ kernels keep PyTorch out of their sources: the Python wrapper passes
 
 Libraries land in ``build/kernels/`` at the repository root (git-ignored),
 named by a hash of the flags and of every source file in the kernel's
-directory (the ``.cu`` and the ``.cuh`` headers it includes), so an edited
+directory (the ``.cu`` and the ``.cuh`` headers it includes) and of each
+header it includes from another kernel's directory, so an edited
 source or header is rebuilt and an unchanged one is loaded as it is. Nothing is built at import
 time: :func:`load` builds on first use, and :func:`build` starts one
 ``nvcc`` per source, all at once, for callers that want every kernel
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -32,6 +34,7 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def _source(name: str) -> Path:
@@ -53,9 +56,22 @@ def _nvcc() -> str:
 
 def _inputs(name: str) -> list[Path]:
     """Every file the build of ``name`` reads from the repository: its
-    ``.cu`` and each ``.cu``/``.cuh`` beside it, in a fixed order."""
+    ``.cu`` and each ``.cu``/``.cuh`` beside it, then the headers they
+    include (``#include "..."``) from another kernel's directory, each
+    list in a fixed order."""
     d = _source(name).parent
-    return sorted(p for p in d.iterdir() if p.suffix in (".cu", ".cuh"))
+    own = sorted(p.resolve() for p in d.iterdir()
+                 if p.suffix in (".cu", ".cuh"))
+    seen, todo, shared = set(own), list(own), []
+    while todo:
+        src = todo.pop()
+        for inc in _INCLUDE.findall(src.read_bytes()):
+            path = (src.parent / inc.decode()).resolve()
+            if path not in seen and path.is_file():
+                seen.add(path)
+                shared.append(path)
+                todo.append(path)
+    return own + sorted(shared)
 
 
 def _target(name: str) -> Path:

@@ -10,20 +10,13 @@
 // the profiled timeline. This kernel computes the same counts in one launch
 // and holds nothing but its [W, n] output.
 //
-// For worker w and sample i (one thread per lane, lane = w * n + i):
-//
-//     g   = (int64) floor(t[i] / cell[w])
-//     g  -= (double) g * cell[w] > t[i]
-//     g  += (double) (g + 1) * cell[w] <= t[i]
-//     lo  = grid[w, clamp(g, 0, G)]
-//     out = lo + #{ j < k_max : lo + j < M and ends[w, min(lo + j, M - 1)] <= t[i] }
-//
-// in this order, each division, product and comparison rounded once as in
-// ref.py (__ddiv_rn, __dmul_rn: nvcc contracts nothing here). grid[w, g] is
-// #(ends[w] <= g * cell[w]) with the same products, so the guarded cell and
-// at most k_max compares give #(ends[w] <= t[i]): searchsorted(side="right")
-// bit for bit. The compares are all counted, not stopped at the first miss,
-// as ref.py sums its whole window.
+// For worker w and sample i (one thread per lane, lane = w * n + i) it runs
+// count_le_grid_lane (count_le.cuh, shared with the trace_sensor kernel):
+// the guarded grid cell of t[i], its prefix count grid[w, g], then at most
+// k_max compares, each division, product and comparison rounded once as in
+// ref.py. grid[w, g] is #(ends[w] <= g * cell[w]) with the same products,
+// so the guarded cell and at most k_max compares give #(ends[w] <= t[i]):
+// searchsorted(side="right") bit for bit.
 //
 // Bound on this card. A lookup reads n sample times (8 B each) and writes W * n
 // counts; the grid and the ends a lane touches are a few cache lines of one
@@ -34,6 +27,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "count_le.cuh"
 
 #define CL_BLOCK 256                       // threads (lanes) per CTA
 
@@ -46,20 +41,8 @@ count_le_grid(const double* __restrict__ ends, const int32_t* __restrict__ grid,
     const int64_t lane = (int64_t)blockIdx.x * CL_BLOCK + threadIdx.x;
     if (lane >= W * n) return;
     const int64_t w = lane / n;
-    const double x = t[lane - w * n];
-    const double cw = cell[w];
-    int64_t g = (int64_t)floor(__ddiv_rn(x, cw));
-    g -= __dmul_rn(__ll2double_rn(g), cw) > x;
-    g += __dmul_rn(__ll2double_rn(g + 1), cw) <= x;
-    g = g < 0 ? 0 : (g > G ? G : g);
-    const int64_t lo = grid[w * (G + 2) + g];
-    const double* __restrict__ row = ends + w * M;
-    int64_t hits = 0;
-    for (int64_t j = 0; j < k_max; ++j) {
-        const int64_t pos = lo + j;
-        hits += (pos < M) & (row[pos < M ? pos : M - 1] <= x);
-    }
-    out[lane] = lo + hits;
+    out[lane] = count_le_grid_lane(ends + w * M, grid + w * (G + 2), cell[w],
+                                   M, G, k_max, t[lane - w * n]);
 }
 
 extern "C" {

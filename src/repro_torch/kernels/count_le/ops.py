@@ -1,9 +1,11 @@
 """Public wrapper of the interval-lookup kernel.
 
 :func:`count_le` is the one place the CUDA kernel (``count_le.cu``) is
-launched: on a CUDA device it launches the kernel or raises; on the CPU
-it runs the plain PyTorch version (:mod:`.ref`, the grid route's torch
-operations). Both give ``searchsorted(side="right")``'s counts.
+launched: on a CUDA device the grid route launches the kernel or raises;
+on the CPU it runs the plain PyTorch version (:mod:`.ref`, the grid
+route's torch operations). A timeline without a bounded grid window
+(``k_max = 0``) takes ``torch.searchsorted`` on either device. All give
+``searchsorted(side="right")``'s counts.
 ``count_le.launches`` counts the kernel's launches, so a run can show
 that its path went through the kernel.
 """
@@ -75,9 +77,10 @@ def count_le(ends, grid, cell, t, k_max: int):
     float64 they share, at most ``k_max`` ≥ 1 ends a grid cell. On a CUDA
     device one kernel launch on the current stream (no synchronisation)
     or a raise; on the CPU :func:`~.ref.count_le_ref`. Both give the same
-    counts."""
+    counts. ``k_max = 0`` (no bounded window) is the binary search of
+    :func:`~.ref.count_le_ref` on either device, with no launch."""
     dev = t.device
-    if dev.type == "cpu":
+    if dev.type == "cpu" or k_max == 0:
         return count_le_ref(ends, grid, cell, t, k_max)
     if dev.type != "cuda":
         raise ValueError(f"count_le: unsupported device {dev}")

@@ -21,10 +21,20 @@ def test_sample_clock_build_reads_its_source():
     assert _build._source("sample_clock").is_file()
 
 
+def test_trace_sensor_build_reads_the_shared_lookup_header():
+    """trace_sensor includes count_le's lookup header from that kernel's
+    directory: the header is one of its inputs."""
+    assert [p.name for p in _build._inputs("trace_sensor")] == [
+        "trace_sensor.cu", "count_le.cuh"]
+    assert [p.name for p in _build._inputs("count_le")] == [
+        "count_le.cu", "count_le.cuh"]
+
+
 @pytest.fixture
 def kernels_copy(tmp_path, monkeypatch):
     """A copy of the kernels' sources, so that edits touch no real file."""
-    for name in ("flash_attention", "rmsnorm", "sample_attr", "sample_clock"):
+    for name in ("flash_attention", "rmsnorm", "sample_attr", "sample_clock",
+                 "count_le", "trace_sensor"):
         src = _build._KERNELS_DIR / name
         dst = tmp_path / name
         dst.mkdir()
@@ -41,7 +51,10 @@ def kernels_copy(tmp_path, monkeypatch):
     ("flash_attention", "new_header.cuh"),
     ("rmsnorm", "rmsnorm.cu"),
     ("sample_attr", "sample_attr.cu"),
-    ("sample_clock", "sample_clock.cu")])
+    ("sample_clock", "sample_clock.cu"),
+    ("trace_sensor", "trace_sensor.cu"),
+    ("trace_sensor", "../count_le/count_le.cuh"),
+    ("count_le", "count_le.cuh")])
 def test_any_source_edit_renames_the_library(kernels_copy, name, edited):
     before = _build._target(name)
     path = kernels_copy / name / edited

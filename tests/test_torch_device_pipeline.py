@@ -393,6 +393,55 @@ def test_count_le_ref_equals_jax(workers, k):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("rails", [False, True], ids=["d1", "d3"])
+def test_trace_sensor_ref_quantises_as_jax(rails):
+    """RAPL's quantised time in the trace sensor's ref.py against the JAX
+    reference's jitted ``_sensor_powers``, bit for bit, at 128 times just
+    before a counter update (near 2·10^4 s) where a true division
+    ``t / up`` and the product ``t * (1 / up)`` quantise apart. Each time
+    is a chunk of one valid lane, so the chunk's carry is its quantised
+    time; the JAX chunks run batched under one ``vmap``. The JAX
+    reference's constant divisor is compiled to a product with its
+    reciprocal, as ref.py writes it, and the true division is shown to
+    differ at every one of these times. The readings are compared to a
+    tolerance: XLA orders and fuses the energy arithmetic its own way."""
+    from _torch_trace_sensor_cases import (UP, edge_times, sensor_args,
+                                           sensor_timeline)
+    from repro_torch.kernels.trace_sensor.ref import trace_sensor_ref
+    dtl = sensor_timeline(4, rails, False, scale=2.5e5, seed=4)
+    t = edge_times(2e4, 2.1e4)[:128]
+    assert len(t) == 128 and t[-1] < dtl.t_end
+    prevs = np.floor((t - 7 * UP) / UP + 1e-6) * UP
+    got, carry = [], []
+    for ti, pi in zip(t, prevs):
+        pows, c = trace_sensor_ref(*sensor_args("rapl", dtl, ti[None], pi))
+        got.append(pows[..., 0].numpy())
+        carry.append(float(c))
+    got, carry = np.stack(got), np.array(carry)
+    _, _, tt, cnt, _, _, ends, bounds, eint, powers, m_true, grid, cell, \
+        k = sensor_args("rapl", dtl, t, 0.0)
+    spec = rsensors.SensorSpec(
+        "rapl", update_period=UP,
+        domains=("package", "hbm", "ici") if rails else ("total",))
+    with jax.enable_x64(True):
+        arrs = tuple(jnp.asarray(a.numpy()) for a in (ends, bounds, eint,
+                                                      powers)) \
+            + (jnp.zeros(ends.shape, jnp.int32),) \
+            + tuple(jnp.asarray(a.numpy()) for a in (m_true, grid, cell))
+        one = jax.jit(jax.vmap(
+            lambda x, n, v, p: rdp._sensor_powers(spec, arrs, x, n, v, p, k),
+            in_axes=(0, 1, 0, 0)))
+        want, want_carry = one(jnp.asarray(tt.numpy())[:, None],
+                               jnp.asarray(cnt.numpy())[:, :, None],
+                               jnp.ones((len(t), 1), bool), jnp.asarray(prevs))
+    want, want_carry = np.asarray(want)[..., 0], np.asarray(want_carry)
+    np.testing.assert_array_equal(carry.view(np.int64),
+                                  want_carry.view(np.int64))
+    assert (np.floor(t / UP + 1e-6) * UP != want_carry).all()
+    assert got.shape == want.shape == ((128, 4, 3) if rails else (128, 4))
+    np.testing.assert_allclose(got, want, rtol=1e-8)
+
+
 def test_count_le_cpu_route_is_the_ref_and_loads_no_library(monkeypatch):
     """On the CPU, _count_le with a grid window is ref.py's operations,
     bit for bit: no library is built or loaded and nothing is launched."""
@@ -416,15 +465,28 @@ def test_count_le_cpu_route_is_the_ref_and_loads_no_library(monkeypatch):
 
 
 def test_count_le_search_route_is_untouched(monkeypatch):
-    """k_max = 0 (heavy-tailed durations) takes torch.searchsorted and
-    never the grid route."""
-    def refuse(*a):
-        raise AssertionError("the search route went through count_le")
+    """k_max = 0 (heavy-tailed durations) takes torch.searchsorted, inside
+    count_le, and never the grid route (whose gathers are refused)."""
+    searched = []
+    search = torch.searchsorted
 
-    monkeypatch.setattr(dp, "count_le", refuse)
+    def spy(*a, **kw):
+        searched.append(a[1].shape)
+        return search(*a, **kw)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the search route went through the grid")
+
     dtl, t = lookup_case(2, 3, seed=4)
+    want = _searchsorted(dtl, t)
+    before = count_le_ops.count_le.launches
+    monkeypatch.setattr(torch, "searchsorted", spy)
+    monkeypatch.setattr(torch, "gather", refuse)
     got = dp._count_le(dtl.ends, dtl.grid, dtl.cell, t, 0)
-    assert torch.equal(got, _searchsorted(dtl, t))
+    monkeypatch.undo()
+    assert torch.equal(got, want)
+    assert searched == [(2, t.numel())]
+    assert count_le_ops.count_le.launches == before
 
 
 def test_count_le_refuses_other_devices():
